@@ -1,0 +1,198 @@
+// Decode attention for Hopper (sm_90a): one query token per sequence over
+// the stacked KV cache plus the bf16 staging buffer.
+//
+// Replaces nnop_tpu/ops/attention_decode.py:decode_attention (_decode_kernel
+// with _decode_step_b / _decode_step_b_flat / _staging_step_b) for a
+// floating-point cache and T = 1.
+//
+// Bound on the H100: device-memory bandwidth. Each step reads every live
+// cache row of the layer once (lengths[b] * E * 2 values per KV head)
+// against ~4 * G flops per value, far below the flop/byte ridge. The
+// design reads each K and V row once for all G query heads of its KV head
+// (one block per (slot, KV head) holds the G heads) and only live rows
+// (< lengths[b]). A block stages each 32-row K/V tile in shared memory
+// with 16-byte loads issued together (so their latencies overlap), scores
+// one (head, key) pair per thread, and accumulates P V with one output
+// column per thread; the online-softmax state stays on chip. It is the
+// simple form: 64 blocks at the serving batch cannot fill 132 SMs, so
+// split-KV with a combine pass is the next step.
+//
+// Semantics (attention_decode.py:48-171, 404-481): lengths[b] counts
+// FLUSHED tokens, so cache rows [0, lengths[b]) are live; staging rows
+// [0, staged_n) hold the newest tokens and are masked for a slot with
+// lengths[b] == 0. The cache part rounds P to the cache dtype before the
+// PV product; the staging part runs with q and P rounded to bf16. Query
+// row g of KV head kh is query head kh * G + g. A slot with no live key
+// writes zeros (l == 0 is guarded).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kE = 128;        // head dim: thread i of the block owns output column i
+constexpr int kThreads = kE;   // 4 warps
+constexpr int kTile = 32;      // keys per tile; the staging buffer (W <= 32) is one tile
+constexpr int kMaxG = 8;       // query heads per KV head
+constexpr int kRow = kE + 1;   // padded shared row (floats): row-strided reads hit distinct banks
+
+struct DecodeSmem {
+  float q[kMaxG][kE];
+  float k[kTile][kRow];
+  float v[kTile][kRow];
+  float p[kMaxG][kTile];  // scores, then the (rounded) probabilities
+  float m[kMaxG], l[kMaxG], alpha[kMaxG];
+};
+
+// Copy n (<= kTile) rows of kE values at src into dst as floats. All of a
+// thread's 16-byte loads are issued before any store, so their latencies
+// overlap.
+template <typename KV>
+__device__ __forceinline__ void load_tile(const KV* __restrict__ src, int n, float (*dst)[kRow]) {
+  constexpr int kVec = 16 / sizeof(KV);                 // values per 16-byte vector
+  constexpr int kVecs = kE / kVec;                      // vectors per row
+  constexpr int kPer = kTile * kVecs / kThreads;        // vectors per thread per tile
+  uint4 raw[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * kThreads, r = i / kVecs, c = (i % kVecs) * kVec;
+    raw[u] = r < n ? *reinterpret_cast<const uint4*>(src + (size_t)r * kE + c)
+                   : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * kThreads, r = i / kVecs, c = (i % kVecs) * kVec;
+    const KV* vals = reinterpret_cast<const KV*>(&raw[u]);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[r][c + e] = nnop::to_float(vals[e]);
+  }
+}
+
+// Online-softmax update with the n (<= kTile) live keys at kt / vt (rows
+// of kE). PT is the type P is rounded to for the PV product.
+template <typename KV, typename PT>
+__device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV* __restrict__ vt,
+                                            int n, int G, float scale, DecodeSmem& sm,
+                                            float* acc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  load_tile(kt, n, sm.k);
+  load_tile(vt, n, sm.v);
+  __syncthreads();
+  // scores: one (query head, key) pair per thread
+  for (int i = threadIdx.x; i < G * kTile; i += kThreads) {
+    const int gq = i / kTile, j = i % kTile;
+    if (j < n) {
+      float d = 0.f;
+#pragma unroll 16
+      for (int e = 0; e < kE; ++e) d += sm.q[gq][e] * sm.k[j][e];
+      sm.p[gq][j] = d * scale;
+    }
+  }
+  __syncthreads();
+  // softmax state: warp w updates query heads w, w + 4
+  for (int gq = warp; gq < G; gq += kThreads / 32) {
+    const float m_old = sm.m[gq];
+    const float s = lane < n ? sm.p[gq][lane] : nnop::kMaskValue;
+    const float m_new = fmaxf(m_old, nnop::warp_max(s));
+    const float p = lane < n ? __expf(s - m_new) : 0.f;
+    sm.p[gq][lane] = nnop::round_to<PT>(p);
+    const float sum = nnop::warp_sum(p);
+    if (lane == 0) {
+      const float alpha = __expf(m_old - m_new);
+      sm.alpha[gq] = alpha;
+      sm.m[gq] = m_new;
+      sm.l[gq] = sm.l[gq] * alpha + sum;
+    }
+  }
+  __syncthreads();
+  // acc = acc * alpha + P V for column e = threadIdx.x
+  const int e = threadIdx.x;
+#pragma unroll
+  for (int gq = 0; gq < kMaxG; ++gq)
+    if (gq < G) acc[gq] *= sm.alpha[gq];
+  for (int j = 0; j < n; ++j) {
+    const float vv = sm.v[j][e];
+#pragma unroll
+    for (int gq = 0; gq < kMaxG; ++gq)
+      if (gq < G) acc[gq] += sm.p[gq][j] * vv;
+  }
+  __syncthreads();  // the next tile overwrites sm.k, sm.v and sm.p
+}
+
+// Grid (KH, B). Caches (n_layers, B, KH, S, kE) of T; staging
+// (B, n_layers, KH, W, kE) bf16 or null; q, o (B, QH, kE) of T.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+              const T* __restrict__ v_cache, const __nv_bfloat16* __restrict__ k_stage,
+              const __nv_bfloat16* __restrict__ v_stage, const int* __restrict__ lengths,
+              T* __restrict__ o, int B, int QH, int KH, int S, int n_layers, int layer, int W,
+              int staged_n, float scale) {
+  __shared__ DecodeSmem sm;
+  const int kh = blockIdx.x, b = blockIdx.y, G = QH / KH;
+  const int len = lengths[b];
+  const T* qb = q + ((size_t)b * QH + (size_t)kh * G) * kE;
+  for (int i = threadIdx.x; i < G * kE; i += kThreads) sm.q[i / kE][i % kE] = nnop::to_float(qb[i]);
+  if (threadIdx.x < kMaxG) {
+    sm.m[threadIdx.x] = nnop::kMaskValue;
+    sm.l[threadIdx.x] = 0.f;
+  }
+  float acc[kMaxG];
+#pragma unroll
+  for (int gq = 0; gq < kMaxG; ++gq) acc[gq] = 0.f;
+  __syncthreads();
+
+  const size_t cache_off = (((size_t)layer * B + b) * KH + kh) * (size_t)S * kE;
+  for (int c0 = 0; c0 < len; c0 += kTile) {
+    attend_tile<T, T>(k_cache + cache_off + (size_t)c0 * kE, v_cache + cache_off + (size_t)c0 * kE,
+                      min(kTile, len - c0), G, scale, sm, acc);
+  }
+  if (k_stage != nullptr && len > 0 && staged_n > 0) {
+    // the staging part runs with q rounded to bf16 (every cache tile is done)
+    for (int i = threadIdx.x; i < G * kE; i += kThreads)
+      sm.q[i / kE][i % kE] = nnop::round_to<__nv_bfloat16>(sm.q[i / kE][i % kE]);
+    __syncthreads();
+    const size_t st_off = (((size_t)b * n_layers + layer) * KH + kh) * (size_t)W * kE;
+    attend_tile<__nv_bfloat16, __nv_bfloat16>(k_stage + st_off, v_stage + st_off, staged_n, G,
+                                              scale, sm, acc);
+  }
+  T* ob = o + ((size_t)b * QH + (size_t)kh * G) * kE;
+#pragma unroll
+  for (int gq = 0; gq < kMaxG; ++gq) {
+    if (gq < G) {
+      const float l = sm.l[gq];
+      ob[gq * kE + threadIdx.x] = nnop::from_float<T>(acc[gq] / (l == 0.f ? 1.f : l));
+    }
+  }
+}
+
+}  // namespace
+
+// q (B, QH, 1, E) and o of the cache dtype (bf16, or f32 when
+// cache_is_f32); caches stacked (n_layers, B, KH, S, E); staging
+// (B, n_layers, KH, W, E) bf16 or null; lengths (B,) int32. E must be 128,
+// QH / KH <= 8 and W <= 32.
+extern "C" int nnop_decode_attention(const void* q, const void* k_cache, const void* v_cache,
+                                     const void* k_stage, const void* v_stage,
+                                     const void* lengths, void* o, int B, int QH, int KH, int S,
+                                     int E, int n_layers, int layer, int W, int staged_n,
+                                     float scale, int cache_is_f32, void* stream) {
+  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(KH, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* ks = static_cast<const __nv_bfloat16*>(k_stage);
+  const auto* vs = static_cast<const __nv_bfloat16*>(v_stage);
+  const auto* lens = static_cast<const int*>(lengths);
+  if (cache_is_f32) {
+    decode_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_cache),
+        static_cast<const float*>(v_cache), ks, vs, lens, static_cast<float*>(o), B, QH, KH, S,
+        n_layers, layer, W, staged_n, scale);
+  } else {
+    decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
+        static_cast<const __nv_bfloat16*>(v_cache), ks, vs, lens,
+        static_cast<__nv_bfloat16*>(o), B, QH, KH, S, n_layers, layer, W, staged_n, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

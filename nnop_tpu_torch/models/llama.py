@@ -1,0 +1,338 @@
+"""Llama-family decoder on the ported kernels.
+
+Counterpart of nnop_tpu/models/llama.py. Parameters are the JAX
+package's tree — a dict of tensors with a list of per-layer dicts,
+weights stored (in, out) and applied as `x @ w` — so trees convert
+between the packages (models/weights.py:params_from_numpy). `Llama` wraps
+a tree as a frozen `nn.Module` in eval mode.
+
+Uses rms_norm (Triton), llama_rope (Triton) and flash_attention (CUDA);
+the projections and the MLP are plain `torch.matmul` products, as the JAX
+package leaves them to XLA. `forward(..., plain=True)` runs the plain
+versions of the ops instead, the reference the kernels are held to on the
+card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nnop_tpu_torch.ops.flash_attention import flash_attention
+from nnop_tpu_torch.ops.naive import naive_attention, naive_rms_norm, naive_rope
+from nnop_tpu_torch.ops.rms_norm import rms_norm
+from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """Decoder-transformer config covering the Llama lineage of families.
+
+    Family knobs (all default to Llama-3 semantics):
+      sliding_window: Mistral — causal attention over the last
+        `sliding_window` keys.
+      rms_offset: Gemma — rms_norm computes (offset + w) * x_hat.
+      act: "silu" (SwiGLU) or "gelu" (Gemma GeGLU, tanh approximation).
+      qkv_bias: Qwen2 — additive bias on the q/k/v projections.
+      tie_embeddings: lm_head = embed^T (Gemma, Qwen2-small).
+      embed_scale: multiply embeddings by this after lookup (Gemma).
+      attn_softcap / final_softcap: Gemma-2 logit softcapping.
+      attn_scale: override the attention score scale (default
+        1/sqrt(head_dim)).
+      post_norms: Gemma-2 — rms_norm on each sublayer output.
+      window_pattern: Gemma-2 — the window applies only on layers where
+        layer_idx % window_pattern == 0.
+      rope_scaling: Llama-3.1 NTK-by-parts scaling (factor,
+        low_freq_factor, high_freq_factor, original_max_len).
+      n_experts / n_experts_per_token / capacity_factor /
+        router_aux_coef / moe_impl: Mixtral (MoE is not ported yet).
+    """
+
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    hidden_dim: int = 14336
+    rope_base: float = 500000.0
+    rms_eps: float = 1e-5
+    max_seq_len: int = 8192
+    dtype: Any = torch.bfloat16
+    sliding_window: int | None = None
+    rms_offset: float = 0.0
+    act: str = "silu"
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    embed_scale: float | None = None
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    attn_scale: float | None = None
+    post_norms: bool = False
+    window_pattern: int | None = None
+    rope_scaling: tuple[float, float, float, int] | None = None
+    n_experts: int | None = None
+    n_experts_per_token: int = 2
+    capacity_factor: float | None = None
+    router_aux_coef: float = 0.01
+    moe_impl: str = "einsum"
+
+    def layer_window(self, li: int) -> int | None:
+        """Effective sliding window for layer `li` (Gemma-2 alternates)."""
+        if self.sliding_window is None:
+            return None
+        if self.window_pattern is not None and li % self.window_pattern != 0:
+            return None
+        return self.sliding_window
+
+    @staticmethod
+    def llama3_8b(**kw):
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def mistral_7b(**kw):
+        defaults = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                        n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                        rope_base=10000.0, rms_eps=1e-5, sliding_window=4096)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def gemma_2b(**kw):
+        defaults = dict(vocab_size=256000, dim=2048, n_layers=18, n_heads=8,
+                        n_kv_heads=1, head_dim=256, hidden_dim=16384,
+                        rope_base=10000.0, rms_eps=1e-6, rms_offset=1.0,
+                        act="gelu", tie_embeddings=True, embed_scale=2048.0**0.5)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def llama31_8b(**kw):
+        defaults = dict(max_seq_len=131072, rope_scaling=(8.0, 1.0, 4.0, 8192))
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def gemma2_2b(**kw):
+        defaults = dict(vocab_size=256000, dim=2304, n_layers=26, n_heads=8,
+                        n_kv_heads=4, head_dim=256, hidden_dim=9216,
+                        rope_base=10000.0, rms_eps=1e-6, rms_offset=1.0,
+                        act="gelu", tie_embeddings=True, embed_scale=2304.0**0.5,
+                        attn_softcap=50.0, final_softcap=30.0, post_norms=True,
+                        sliding_window=4096, window_pattern=2)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def qwen2_7b(**kw):
+        defaults = dict(vocab_size=152064, dim=3584, n_layers=28, n_heads=28,
+                        n_kv_heads=4, head_dim=128, hidden_dim=18944,
+                        rope_base=1000000.0, rms_eps=1e-6, qkv_bias=True)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def mixtral_8x7b(**kw):
+        defaults = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                        n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                        rope_base=1000000.0, rms_eps=1e-5, n_experts=8,
+                        n_experts_per_token=2)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def tiny_moe(**kw):
+        defaults = dict(n_experts=4, n_experts_per_token=2)
+        defaults.update(kw)
+        return LlamaConfig.tiny(**defaults)
+
+    @staticmethod
+    def tiny(**kw):
+        defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, head_dim=32, hidden_dim=256,
+                        rope_base=10000.0, max_seq_len=256)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+
+def init_params(generator: torch.Generator, cfg: LlamaConfig):
+    """Random-init params tree on the generator's device (the JAX
+    package's init: N(0, 1/fan_in) projections, N(0, 0.02^2) embeddings,
+    identity norms). Same seed, different numbers than jax.random."""
+    if cfg.n_experts is not None:
+        raise NotImplementedError("MoE configs are not ported yet")
+    d, hd = cfg.dim, cfg.head_dim
+    dev = generator.device
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return x.mul_(std).to(cfg.dtype)
+
+    def dense(shape):
+        return normal(shape, shape[0] ** -0.5)
+
+    def full(n):
+        # Gemma-style zero-centered norm weights: identity is 1 - offset
+        return torch.full((n,), 1.0 - cfg.rms_offset, dtype=cfg.dtype, device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=cfg.dtype, device=dev)
+
+    def layer():
+        out = {
+            "attn_norm": full(d),
+            "wq": dense((d, cfg.n_heads * hd)),
+            "wk": dense((d, cfg.n_kv_heads * hd)),
+            "wv": dense((d, cfg.n_kv_heads * hd)),
+            "wo": dense((cfg.n_heads * hd, d)),
+            "mlp_norm": full(d),
+            "w_gate": dense((d, cfg.hidden_dim)),
+            "w_up": dense((d, cfg.hidden_dim)),
+            "w_down": dense((cfg.hidden_dim, d)),
+        }
+        if cfg.qkv_bias:
+            out["bq"] = zeros(cfg.n_heads * hd)
+            out["bk"] = zeros(cfg.n_kv_heads * hd)
+            out["bv"] = zeros(cfg.n_kv_heads * hd)
+        if cfg.post_norms:
+            out["attn_post_norm"] = full(d)
+            out["mlp_post_norm"] = full(d)
+        return out
+
+    params = {
+        "embed": normal((cfg.vocab_size, d), 0.02),
+        "layers": [layer() for _ in range(cfg.n_layers)],
+        "final_norm": full(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size))
+    return params
+
+
+def _split_heads(x, n_heads, head_dim):
+    # (B, L, H*E) -> (B, H, L, E), contiguous (the kernels take dense rows)
+    B, L, _ = x.shape
+    return x.reshape(B, L, n_heads, head_dim).transpose(1, 2).contiguous()
+
+
+def _merge_heads(x):
+    # (B, H, L, E) -> (B, L, H*E)
+    B, H, L, E = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * E)
+
+
+def act_fn(cfg: LlamaConfig, g):
+    if cfg.act == "silu":
+        return F.silu(g)
+    return F.gelu(g, approximate="tanh")
+
+
+def _plain_rms_norm(x, w, eps, offset=0.0):
+    return naive_rms_norm(x, w, eps=eps, offset=offset)
+
+
+# (rms_norm, rope, attention): the kernels, or their plain versions
+_KERNEL_OPS = (rms_norm, llama_rope, flash_attention)
+_PLAIN_OPS = (_plain_rms_norm, naive_rope, naive_attention)
+
+
+def _post(norm, layer, out, cfg: LlamaConfig, key: str):
+    """Gemma-2 post-norm: normalize the sublayer OUTPUT pre-residual."""
+    if cfg.post_norms:
+        return norm(out, layer[key], cfg.rms_eps, offset=cfg.rms_offset)
+    return out
+
+
+def attention_block(layer, x, cos, sin, cfg: LlamaConfig, *, kpad_mask=None,
+                    causal=True, layer_idx: int = 0, segment_ids=None, plain=False):
+    """rms_norm -> qkv proj -> rope -> flash attention -> out proj (+ x)."""
+    norm, rope, attention = _PLAIN_OPS if plain else _KERNEL_OPS
+    h = norm(x, layer["attn_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    xq, xk, xv = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    if cfg.qkv_bias:
+        xq, xk, xv = xq + layer["bq"], xk + layer["bk"], xv + layer["bv"]
+    q = _split_heads(xq, cfg.n_heads, cfg.head_dim)
+    k = _split_heads(xk, cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(xv, cfg.n_kv_heads, cfg.head_dim)
+    q, k = rope(q, k, cos, sin)
+    o = attention(
+        q, k, v, causal=causal, kpad_mask=kpad_mask,
+        segment_ids=(segment_ids, segment_ids) if segment_ids is not None else None,
+        window=cfg.layer_window(layer_idx) if causal else None,
+        softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+    )
+    out = _merge_heads(o.to(x.dtype)) @ layer["wo"]
+    return x + _post(norm, layer, out, cfg, "attn_post_norm")
+
+
+def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False):
+    """Gated MLP (SwiGLU / GeGLU) with residual."""
+    norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
+    h = norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    gate = act_fn(cfg, (h @ layer["w_gate"]).float())
+    up = (h @ layer["w_up"]).float()
+    out = (gate * up).to(x.dtype) @ layer["w_down"]
+    return x + _post(norm, layer, out, cfg, "mlp_post_norm")
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
+            segment_ids=None, plain: bool = False):
+    """Full forward pass: tokens (B, L) int -> logits (B, L, vocab) f32.
+
+    positions: (B, L) absolute positions (default arange). plain: run the
+    plain versions of rms_norm, rope and attention (the kernels' oracle)
+    instead of the kernels."""
+    if cfg.n_experts is not None:
+        raise NotImplementedError("MoE configs are not ported yet")
+    B, L = tokens.shape
+    if positions is None:
+        positions = torch.arange(L, device=tokens.device).expand(B, L)
+    x = params["embed"][tokens]
+    if cfg.embed_scale is not None:
+        x = (x.float() * cfg.embed_scale).to(x.dtype)
+    cos, sin = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)(positions)
+    for i, layer in enumerate(params["layers"]):
+        x = attention_block(layer, x, cos, sin, cfg, kpad_mask=kpad_mask, layer_idx=i,
+                            segment_ids=segment_ids, plain=plain)
+        x = mlp_block(layer, x, cfg, plain=plain)
+    norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
+    x = norm(x, params["final_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    if cfg.tie_embeddings:
+        logits = (x @ params["embed"].T).float()
+    else:
+        logits = (x @ params["lm_head"]).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+class Llama(nn.Module):
+    """A Llama-family decoder as a frozen `nn.Module` in eval mode. Its
+    parameters are the JAX package's tree; `params` returns that tree
+    (sharing storage), which the serving engine takes."""
+
+    def __init__(self, cfg: LlamaConfig, params):
+        super().__init__()
+        self.cfg = cfg
+
+        def frozen(tree):
+            return nn.ParameterDict(
+                {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+
+        self.top = frozen({k: v for k, v in params.items() if k != "layers"})
+        self.layers = nn.ModuleList(frozen(layer) for layer in params["layers"])
+        self.eval()
+
+    @property
+    def params(self):
+        tree = {k: p.data for k, p in self.top.items()}
+        tree["layers"] = [{k: p.data for k, p in layer.items()} for layer in self.layers]
+        return tree
+
+    def forward(self, tokens, *, plain: bool = False):
+        return forward(self.params, tokens, self.cfg, plain=plain)

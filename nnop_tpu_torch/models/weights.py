@@ -1,0 +1,59 @@
+"""Parameter trees from numpy: the JAX package's params and npz checkpoints.
+
+Counterpart of nnop_tpu/models/weights.py (its flat-key npz checkpoints,
+`save_checkpoint`/`load_checkpoint`). The HF safetensors loader waits
+until published checkpoints are available to the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """numpy array -> tensor. bf16 arrays (ml_dtypes.bfloat16, as JAX
+    hands them out, or the 2-byte void type they are stored as in npz)
+    go through a uint16 view, since torch.from_numpy rejects them."""
+    a = np.array(a)  # a writable copy: torch shares its memory
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device) if device is not None else t
+
+
+def params_from_numpy(tree, device=None):
+    """The JAX package's parameter tree (nested dicts and lists of numpy
+    arrays, e.g. `jax.tree.map(np.asarray, params)`) -> the same tree of
+    tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def load_checkpoint(path: str, device=None):
+    """Load a flat-key npz checkpoint written by the JAX package
+    (nnop_tpu.models.weights.save_checkpoint: keys like "layers/0/wq")
+    into a parameter tree on `device`. Numeric key parts are list
+    indices."""
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+    tree: dict = {}
+    for key in data.files:
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = tensor_from_numpy(data[key], device)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(tree)

@@ -1,0 +1,101 @@
+"""Decode attention over a floating-point KV cache: one CUDA kernel for Hopper.
+
+`decode_attention` wraps csrc/decode_attn.cu, which replaces
+nnop_tpu/ops/attention_decode.py:decode_attention (`_decode_kernel`) for
+a floating-point cache and one query token per sequence. See the kernel
+source for what bounds it and how.
+
+The int8 cache (k_scale/v_scale), multi-token speculative verify (T > 1)
+and, on CUDA, the sliding window and softcap are not ported yet and
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nnop_tpu_torch.ops.naive import naive_decode_attention
+from nnop_tpu_torch.utils.build import check_launch, load_library
+from nnop_tpu_torch.utils.platform import check_cuda_operand
+
+MAX_STAGE_W = 32  # staging rows the kernel attends in one tile
+MAX_GROUP = 8  # query heads per KV head the kernel holds
+
+
+@torch.no_grad()
+def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *,
+                     scale: float | None = None, k_stage=None, v_stage=None,
+                     staged_n: int | None = None, layer: int | None = None,
+                     window: int | None = None, softcap: float | None = None):
+    """Single-token decode attention over a floating-point KV cache.
+
+    q: (B, QH, 1, E). k_cache/v_cache: (B, KH, S, E), or STACKED
+    (n_layers, B, KH, S, E) with the static `layer` index (the engine's
+    layout; no per-layer copy is made). lengths: (B,) int32 — valid cache
+    prefix per sequence (flushed tokens only). k_stage/v_stage: optional
+    bf16 staging (B, KH, W, E), or (B, n_layers, KH, W, E) with `layer`,
+    holding the `staged_n` newest tokens at positions [lengths[b],
+    lengths[b] + staged_n); staged_n is uniform across the batch. A slot
+    with lengths[b] == 0 sees nothing and gets zeros.
+    Returns (B, QH, 1, E) in q.dtype.
+    """
+    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
+        raise NotImplementedError("decode_attention: the int8 KV cache is not ported yet")
+    B, QH, T, E = q.shape
+    if T != 1:
+        raise NotImplementedError("decode_attention: multi-token verify is not ported yet")
+    if scale is None:
+        scale = 1.0 / (E**0.5)
+    staged_n = int(staged_n or 0) if k_stage is not None else 0
+    if q.device.type == "cpu":
+        return naive_decode_attention(
+            q, k_cache, v_cache, lengths, scale=scale, k_stage=k_stage,
+            v_stage=v_stage, staged_n=staged_n, layer=layer, window=window,
+            softcap=softcap,
+        )
+    for name, val in (("window", window), ("softcap", softcap)):
+        if val is not None:
+            raise NotImplementedError(
+                f"decode_attention: {name} is not ported to the CUDA kernel yet")
+    if layer is None:  # view a plain cache as a one-layer stack
+        k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
+        if k_stage is not None:
+            k_stage, v_stage = k_stage[:, None], v_stage[:, None]
+    n_layers, _, KH, S, _ = k_cache.shape
+    if k_cache.shape[1] != B or k_cache.shape[4] != E or v_cache.shape != k_cache.shape:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range for {n_layers} layers")
+    if E != 128 or QH % KH or QH // KH > MAX_GROUP:
+        raise ValueError(f"kernel needs head dim 128 and QH/KH <= {MAX_GROUP}; "
+                         f"got E={E}, QH={QH}, KH={KH}")
+    check_cuda_operand("q", q, (torch.bfloat16, torch.float32))
+    check_cuda_operand("k_cache", k_cache, (q.dtype,), device=q.device)
+    check_cuda_operand("v_cache", v_cache, (q.dtype,), device=q.device)
+    check_cuda_operand("lengths", lengths, (torch.int32,), device=q.device)
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths shape {tuple(lengths.shape)}, expected ({B},)")
+    W = 0
+    if k_stage is not None:
+        W = k_stage.shape[3]
+        if k_stage.shape != (B, n_layers, KH, W, E) or v_stage.shape != k_stage.shape:
+            raise ValueError(f"staging shape {tuple(k_stage.shape)} does not match the cache")
+        if W > MAX_STAGE_W or not 0 <= staged_n <= W:
+            raise ValueError(f"need staged_n <= W <= {MAX_STAGE_W}; got {staged_n}, {W}")
+        check_cuda_operand("k_stage", k_stage, (torch.bfloat16,), device=q.device)
+        check_cuda_operand("v_stage", v_stage, (torch.bfloat16,), device=q.device)
+    o = torch.empty_like(q)
+    err = load_library().nnop_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_stage.data_ptr() if k_stage is not None else None,
+        v_stage.data_ptr() if v_stage is not None else None,
+        lengths.data_ptr(), o.data_ptr(), B, QH, KH, S, E, n_layers, int(layer),
+        W, staged_n, float(scale), int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch("decode_attention", err)
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0

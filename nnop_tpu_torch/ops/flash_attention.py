@@ -1,0 +1,141 @@
+"""Flash attention forward: the public API over one CUDA kernel for Hopper.
+
+`flash_fwd` wraps csrc/flash_fwd.cu, which replaces
+nnop_tpu/ops/flash_attention.py:_fwd_impl and the TPU dispatch zoo under
+it (the rect, causal-strip, rect-static, window and chunked kernels): one
+FA-2 kernel serves causal bucketed prefill and chunked prefill (causal
+from a row offset with a key-padding mask). See the kernel source for
+what bounds it and how.
+
+Layouts are the JAX package's: q (B, QH, QL, E), k/v (B, KH, KL, E),
+kpad_mask (B, KL) with True = valid. GQA: query head h reads KV head
+h // (QH // KH). The kernel takes bf16 and head dim 64 or 128; pair bias,
+segment ids, the sliding window and softcap are served only by the plain
+version (a CPU tensor) and raise NotImplementedError on CUDA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nnop_tpu_torch.ops.naive import naive_attention
+from nnop_tpu_torch.utils.build import check_launch, load_library
+from nnop_tpu_torch.utils.platform import check_cuda_operand
+
+
+def _validate(q, k, v, pair, kpad_mask):
+    """Shape-contract errors (nnop_tpu/ops/flash_attention.py:_validate)."""
+    if q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"q head dim {q.shape[-1]} != k head dim {k.shape[-1]}")
+    if k.shape != v.shape:
+        raise ValueError(f"k shape {tuple(k.shape)} != v shape {tuple(v.shape)}")
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads {k.shape[1]}")
+    if q.shape[0] != k.shape[0]:
+        raise ValueError(f"batch mismatch {q.shape[0]} vs {k.shape[0]}")
+    if pair is not None:
+        expect = (q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+        if tuple(pair.shape) != expect:
+            raise ValueError(f"pair shape {tuple(pair.shape)}, expected {expect}")
+    if kpad_mask is not None:
+        expect = (k.shape[0], k.shape[2])
+        if tuple(kpad_mask.shape) != expect:
+            raise ValueError(f"kpad_mask shape {tuple(kpad_mask.shape)}, expected {expect}")
+
+
+@torch.no_grad()
+def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
+              kpad_mask=None, pair=None, segment_ids=None,
+              window: int | None = None, softcap: float | None = None):
+    """Attention forward -> (o (B, QH, QL, E) in q.dtype, lse (B, QH, QL)
+    f32 in nats). Query row i sits at global position causal_offset + i.
+    A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    if q.device.type == "cpu":
+        return naive_attention(
+            q, k, v, pair, causal=causal, causal_offset=causal_offset,
+            kpad_mask=kpad_mask, segment_ids=segment_ids, scale=scale,
+            window=window, softcap=softcap, return_lse=True,
+        )
+    for name, val in (("pair", pair), ("segment_ids", segment_ids),
+                      ("window", window), ("softcap", softcap)):
+        if val is not None:
+            raise NotImplementedError(f"flash_fwd: {name} is not ported to the CUDA kernel yet")
+    B, QH, QL, E = q.shape
+    KH, KL = k.shape[1], k.shape[2]
+    if E not in (64, 128):
+        raise ValueError(f"head dim {E} not supported by the kernel (64 or 128)")
+    if causal_offset < 0:
+        raise ValueError(f"causal_offset must be >= 0, got {causal_offset}")
+    check_cuda_operand("q", q, (torch.bfloat16,))
+    check_cuda_operand("k", k, (torch.bfloat16,), device=q.device)
+    check_cuda_operand("v", v, (torch.bfloat16,), device=q.device)
+    if kpad_mask is not None:
+        check_cuda_operand("kpad_mask", kpad_mask, (torch.bool,), device=q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, QH, QL), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    err = load_library().nnop_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kpad_mask.data_ptr() if kpad_mask is not None else None,
+        o.data_ptr(), lse.data_ptr(), B, QH, KH, QL, KL, E, float(scale),
+        int(causal), int(causal_offset),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check_launch("flash_fwd", err)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
+                    segment_ids=None, scale: float | None = None,
+                    window: int | None = None, softcap: float | None = None):
+    """Multi-head attention with online softmax (forward only).
+
+    q: (B, QH, QL, E); k, v: (B, KH, KL, E) with QH % KH == 0 (GQA/MQA).
+    pair: optional additive bias (B, QH, QL, KL). causal: mask by absolute
+    position (q_pos >= k_pos). kpad_mask: optional (B, KL) bool, True =
+    valid key. segment_ids: optional ((B, QL), (B, KL)) packing ids.
+    scale: default 1/sqrt(E). window: sliding window (requires causal).
+    softcap: s -> softcap * tanh(s / softcap) before masking.
+    """
+    _validate(q, k, v, pair, kpad_mask)
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        window = int(window)
+        if window >= k.shape[2]:
+            window = None  # never binds: plain causal
+    if softcap is not None:
+        if pair is not None:
+            raise ValueError("softcap is incompatible with pair bias")
+        if softcap <= 0:
+            raise ValueError(f"softcap must be > 0, got {softcap}")
+        softcap = float(softcap)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    o, _ = flash_fwd(q, k, v, causal=causal, scale=float(scale), kpad_mask=kpad_mask,
+                     pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
+    return o
+
+
+def flash_attention_chunked(q, k, v, *, causal_offset: int, kpad_mask=None,
+                            scale: float | None = None, window: int | None = None,
+                            softcap: float | None = None):
+    """Causal attention for CHUNKED PREFILL: query rows are a chunk whose
+    global positions start at `causal_offset` (the live cache length);
+    keys span the whole buffer. Row i attends cols <= causal_offset + i,
+    intersected with kpad_mask (and the sliding `window` / `softcap`)."""
+    _validate(q, k, v, None, kpad_mask)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    o, _ = flash_fwd(q, k, v, causal=True, scale=float(scale),
+                     causal_offset=int(causal_offset), kpad_mask=kpad_mask,
+                     window=window,
+                     softcap=None if softcap is None else float(softcap))
+    return o

@@ -1,0 +1,665 @@
+"""Inference engine: chunked staged decode + continuous batching, linear mode.
+
+Counterpart of nnop_tpu/runtime/engine.py for floating-point weights and
+a floating-point (non-paged) KV cache. The design is the JAX engine's,
+so greedy token streams match it token for token:
+
+* `make_decode_chunk` runs `chunk_size` decode steps per dispatch. Each
+  step writes its K/V token into a bf16 STAGING buffer (in place), and
+  the decode kernel attends cache + staging; at chunk end one
+  `flush_staging` writes the staged rows into the stacked cache.
+* The KV cache holds all layers as stacked tensors (n_layers, B, KH, S, E);
+  the decode kernel takes the layer index, so no layer slice is copied.
+* Continuous batching over fixed B slots. Short prompts prefill at a
+  power-of-two bucket; prompts longer than `prefill_chunk` admit in
+  chunks through the offset-aware causal kernel into a live K/V buffer,
+  `prefill_chunks_per_step` chunks per engine step, while other slots
+  keep decoding.
+* Pipelined collection: PyTorch launches are asynchronous, so the host
+  enqueues the next chunk while the card runs the previous one, and
+  `_collect` reads tokens one chunk late (`pipeline_depth=2`).
+
+Paged KV, the prompt prefix cache, speculative decoding, the int8 KV cache,
+quantized weights and per-token logprobs are not ported yet: asking for
+them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from nnop_tpu_torch.models.llama import LlamaConfig, _merge_heads, _split_heads, act_fn
+from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_attention_chunked
+from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.rms_norm import rms_norm
+from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
+
+STAGE_W = 32  # staging capacity (rows per slot and layer); chunk_size may be less
+
+
+# ---- family-aware building blocks (shared by every engine path) --------
+
+
+def _embed_tokens(params, cfg: LlamaConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.embed_scale is not None:
+        x = (x.float() * cfg.embed_scale).to(x.dtype)
+    return x
+
+
+def _lm_logits(params, cfg: LlamaConfig, x):
+    if cfg.tie_embeddings:
+        logits = (x @ params["embed"].T).float()
+    else:
+        logits = (x @ params["lm_head"]).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _layer_qkv(layer, h, cfg: LlamaConfig):
+    """Q/K/V projections through the fused wqkv (+ the Qwen2 bias)."""
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    qkv = h @ layer["wqkv"]
+    if "bqkv" in layer:
+        qkv = qkv + layer["bqkv"]
+    xq, xk, xv = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
+    q = _split_heads(xq, cfg.n_heads, cfg.head_dim)
+    k = _split_heads(xk, cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(xv, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _post_norm(layer, out, cfg: LlamaConfig, key: str):
+    """Gemma-2 post-norm on the sublayer OUTPUT, pre-residual."""
+    if cfg.post_norms:
+        return rms_norm(out, layer[key], cfg.rms_eps, offset=cfg.rms_offset)
+    return out
+
+
+def _attn_out(layer, o, x, cfg: LlamaConfig):
+    """Output projection + optional post-norm + residual add."""
+    out = _merge_heads(o.to(x.dtype)) @ layer["wo"]
+    return x + _post_norm(layer, out, cfg, "attn_post_norm")
+
+
+def _layer_mlp(layer, x, cfg: LlamaConfig):
+    h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    gu = (h @ layer["w_gateup"]).float()
+    gate = act_fn(cfg, gu[..., : cfg.hidden_dim])
+    up = gu[..., cfg.hidden_dim :]
+    out = (gate * up).to(x.dtype) @ layer["w_down"]
+    return x + _post_norm(layer, out, cfg, "mlp_post_norm")
+
+
+def _forward_layers(params, cfg: LlamaConfig, x, cos, sin, attend):
+    """The decoder stack + final norm + logits, shared by prefill, chunked
+    prefill and decode. attend(li, q, k, v) -> o runs layer li's attention
+    with whatever K/V bookkeeping the caller's path needs."""
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+        q, k, v = _layer_qkv(layer, h, cfg)
+        q, k = llama_rope(q, k, cos, sin)
+        x = _attn_out(layer, attend(li, q, k, v), x, cfg)
+        x = _layer_mlp(layer, x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    return _lm_logits(params, cfg, x)
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Device-side state, updated in place.
+
+    `lengths` counts FLUSHED tokens (the valid cache prefix); tokens
+    generated inside the current decode chunk live in the bf16 staging
+    buffers until `flush_staging` moves them into the caches at chunk end.
+    """
+
+    k: torch.Tensor  # (n_layers, B, KH, S, E)
+    v: torch.Tensor
+    lengths: torch.Tensor  # (B,) int32
+    last_token: torch.Tensor  # (B,) int64
+    k_stage: torch.Tensor  # (B, n_layers, KH, STAGE_W, E) bf16
+    v_stage: torch.Tensor
+
+
+def init_state(cfg: LlamaConfig, batch: int, max_seq: int, device) -> EngineState:
+    nl, kh, e = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return EngineState(
+        k=zeros((nl, batch, kh, max_seq, e), cfg.dtype),
+        v=zeros((nl, batch, kh, max_seq, e), cfg.dtype),
+        lengths=zeros((batch,), torch.int32),
+        last_token=zeros((batch,), torch.int64),
+        k_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
+        v_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
+    )
+
+
+def filtered_logits(logits, temperature: float, top_k: int = 0,
+                    top_p: float = 1.0, min_p: float = 0.0):
+    """Temperature/top-k/top-p/min-p filtered logits (B, V): softmax of the
+    result is the sampling distribution. top_p keeps the smallest prefix
+    of the descending-probability order with mass >= top_p (the top-1
+    token always survives); min_p drops tokens whose probability is below
+    min_p * max-probability."""
+    scaled = logits / temperature
+    neg = torch.full_like(scaled, -math.inf)
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled >= kth, scaled, neg)
+    if min_p > 0.0:
+        # p >= min_p * pmax  <=>  logit >= max_logit + log(min_p)
+        cut = scaled.amax(dim=-1, keepdim=True) + math.log(min_p)
+        scaled = torch.where(scaled >= cut, scaled, neg)
+    if top_p < 1.0:
+        desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(desc, dim=-1)
+        exclusive = torch.cumsum(probs, dim=-1) - probs
+        kept = torch.where(exclusive < top_p, desc, torch.full_like(desc, math.inf))
+        cutoff = kept.amin(dim=-1, keepdim=True)
+        scaled = torch.where(scaled >= cutoff, scaled, neg)
+    return scaled
+
+
+def sample_tokens(logits, generator: Optional[torch.Generator], temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0):
+    """Greedy (temperature 0) or filtered sampling; logits (B, V) -> (B,)
+    int64. Sampling draws from `generator` (exponential race: argmax of
+    p / Exp(1) is a draw from p), with no host sync."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(filtered_logits(logits, temperature, top_k, top_p, min_p), dim=-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / race).argmax(dim=-1)
+
+
+def fuse_decode_weights(params):
+    """Concatenate per-layer projections for fewer launches in decode:
+    wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup (biases too)."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = []
+    for layer in params["layers"]:
+        fused = {k: v for k, v in layer.items()
+                 if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
+        fused["wqkv"] = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=1)
+        fused["w_gateup"] = torch.cat([layer["w_gate"], layer["w_up"]], dim=1)
+        if "bq" in layer:
+            fused["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
+        out["layers"].append(fused)
+    return out
+
+
+def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
+                      top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0):
+    """The engine fast path: `chunk` decode steps per call.
+
+    Returns chunk_fn(params, state, generator) -> tokens (chunk, B) int64,
+    updating `state` in place: staging rows, the flushed caches, lengths
+    (+chunk for live slots) and last_token. Takes fused params
+    (fuse_decode_weights).
+    """
+    rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
+
+    @torch.no_grad()
+    def chunk_fn(params, state: EngineState, generator):
+        toks = torch.empty((chunk, state.lengths.shape[0]), dtype=torch.int64,
+                           device=state.lengths.device)
+        last = state.last_token
+        for i in range(chunk):
+
+            def attend(li, q, k, v):
+                # (B, KH, 1, E) -> staging row i of layer li, in place
+                state.k_stage[:, li, :, i] = k[:, :, 0]
+                state.v_stage[:, li, :, i] = v[:, :, 0]
+                return decode_attention(
+                    q, state.k, state.v, state.lengths,
+                    k_stage=state.k_stage, v_stage=state.v_stage, staged_n=i + 1,
+                    layer=li, window=cfg.layer_window(li),
+                    softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                )
+
+            cos, sin = rope((state.lengths + i)[:, None])
+            x = _embed_tokens(params, cfg, last[:, None])
+            logits = _forward_layers(params, cfg, x, cos, sin, attend)[:, 0]
+            last = sample_tokens(logits, generator, temperature, top_k, top_p, min_p)
+            toks[i] = last
+        flush_staging(state.k, state.v, None, None, state.k_stage, state.v_stage,
+                      state.lengths)
+        state.lengths += (state.lengths > 0).to(torch.int32) * chunk
+        state.last_token = last
+        return toks
+
+    return chunk_fn
+
+
+def make_prefill_unrolled(cfg: LlamaConfig):
+    """Prefill over the fused params the decode uses, so the engine holds
+    one copy of the weights. Returns
+    prefill(params, tokens (B, L)) -> (logits (B, L, V),
+    k (nl, B, KH, L, E), v)."""
+    rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        B, L = tokens.shape
+        ks, vs = [], []
+
+        def attend(li, q, k, v):
+            ks.append(k)
+            vs.append(v)
+            return flash_attention(q, k, v, causal=True, window=cfg.layer_window(li),
+                                   softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+
+        cos, sin = rope(torch.arange(L, device=tokens.device).expand(B, L))
+        logits = _forward_layers(params, cfg, _embed_tokens(params, cfg, tokens), cos, sin,
+                                 attend)
+        return logits, torch.stack(ks), torch.stack(vs)
+
+    return prefill
+
+
+def make_prefill_chunk_step(cfg: LlamaConfig):
+    """CHUNKED prefill into a live K/V buffer: one chunk of the prompt
+    whose rows start at `offset`, attending the K/V of all previous
+    chunks through the offset-aware causal kernel (row i sees buffer
+    cols <= offset + i).
+
+    step(params, tokens_c (1, C), ks_buf, vs_buf (nl, 1, KH, S, E) bf16,
+         offset) -> (chunk logits (1, C, V), ks_buf, vs_buf); the buffers
+    are written in place.
+    """
+    rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
+
+    @torch.no_grad()
+    def step(params, tokens_c, ks_buf, vs_buf, offset: int):
+        B, C = tokens_c.shape
+        dev = tokens_c.device
+        valid = (torch.arange(ks_buf.shape[3], device=dev) < offset + C)[None]  # (1, S)
+
+        def attend(li, q, k, v):
+            # the chunk's K/V rows of layer li, in place, as bf16
+            ks_buf[li, :, :, offset : offset + C] = k
+            vs_buf[li, :, :, offset : offset + C] = v
+            return flash_attention_chunked(
+                q, ks_buf[li].to(q.dtype), vs_buf[li].to(q.dtype),
+                causal_offset=offset, kpad_mask=valid, window=cfg.layer_window(li),
+                softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+            )
+
+        cos, sin = rope(offset + torch.arange(C, device=dev).expand(B, C))
+        logits = _forward_layers(params, cfg, _embed_tokens(params, cfg, tokens_c), cos, sin,
+                                 attend)
+        return logits, ks_buf, vs_buf
+
+    return step
+
+
+class QueueFullError(Exception):
+    """Raised by Engine.submit when the pending queue is at max_queue —
+    the serving front-end maps this to HTTP 429."""
+
+
+@dataclasses.dataclass(eq=False)  # identity semantics: two requests with
+# equal payloads are still distinct queue entries (cancel uses `in`/`is`)
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # stop sequences (token-id lists): generation ends when the output
+    # tail matches one; the matched tokens are removed from `out`
+    stop: list[list[int]] = dataclasses.field(default_factory=list)
+    # stop STRINGS, matched on decoded text (BPE is context-dependent, so
+    # the same text can arrive under different token ids). Requires a
+    # tokenizer.
+    stop_texts: list[str] = dataclasses.field(default_factory=list)
+    # incremental stop-string matcher state: decoded bytes of `out` so far
+    # and each token's decoded byte length (both tokenizers decode by
+    # per-token byte concatenation, so byte-level matching is exact)
+    _dec_bytes: bytearray = dataclasses.field(default_factory=bytearray, repr=False)
+    _piece_lens: list[int] = dataclasses.field(default_factory=list, repr=False)
+    cancelled: bool = False
+
+
+def _check_params(params):
+    """The slice serves floating-point weights only."""
+    leaves = [v for k, v in params.items() if k != "layers"]
+    leaves += [v for layer in params["layers"] for v in layer.values()]
+    for t in leaves:
+        if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
+            raise NotImplementedError("quantized weights are not ported yet")
+    if any("w_router" in layer for layer in params["layers"]):
+        raise NotImplementedError("MoE layers are not ported yet")
+
+
+class Engine:
+    """Continuous-batching inference engine (host scheduler, device state).
+
+    Weight-fused unrolled layers, staged KV appends, and `chunk_size`
+    tokens per dispatch (one host round-trip and one staging flush per
+    chunk). The device is the one the params live on.
+    """
+
+    def __init__(self, params, cfg: LlamaConfig, *, max_batch=8, max_seq=2048,
+                 quantized_kv=False, eos_id=None, tokenizer=None,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 min_p: float = 0.0, seed: int = 0, chunk_size: int = 8,
+                 logprobs: bool = False, paged: bool = False, prefill_chunk: int = 512,
+                 prefill_chunks_per_step: int = 4, pipeline_depth: int = 2,
+                 spec_k: int = 0, prefix_cache: bool = False, max_queue: int = 256):
+        for name, on in (("paged", paged), ("prefix_cache", prefix_cache),
+                         ("spec_k > 0", spec_k > 0), ("quantized_kv=True", quantized_kv),
+                         ("logprobs=True", logprobs)):
+            if on:
+                raise NotImplementedError(f"Engine({name}) is not ported yet")
+        _check_params(params)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.min_p = min_p
+        if not 1 <= chunk_size <= STAGE_W:
+            raise ValueError(f"chunk_size must be in [1, {STAGE_W}]")
+        self.chunk_size = chunk_size
+        self.device = params["embed"].device
+        self.params = fuse_decode_weights(params)
+        # chunk-dispatch pipelining: keep (depth-1) chunks in flight and
+        # collect their tokens one step late; EOS detection lags a chunk,
+        # so a finishing slot wastes at most (depth-1) extra chunks
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._inflight: list[tuple] = []
+        # incremental admission: slot -> in-progress chunked-prefill state
+        self.prefill_chunks_per_step = max(1, int(prefill_chunks_per_step))
+        self._admitting: dict[int, dict] = {}
+        self._admit_rr = -1
+        if max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        self.max_queue = max_queue
+        # the flush writes STAGE_W rows at each slot's length, and inflight
+        # chunks can advance a finished slot (depth-1) chunks past max_seq
+        # before collection zeroes it: pad the cache for both
+        alloc = -(-(max_seq + STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size) // 32) * 32
+        self.state = init_state(cfg, max_batch, alloc, self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p)
+        self._prefill = make_prefill_unrolled(cfg)
+        self.prefill_chunk = prefill_chunk
+        self._prefill_chunk_fn = make_prefill_chunk_step(cfg)
+        self.slots: list[Optional[Request]] = [None] * max_batch
+        self.queue: list[Request] = []
+        self._rid = 0
+
+    def warmup(self, prompt_lengths=(512,)):
+        """Run one dummy request per prompt length plus a decode chunk
+        before taking traffic (builds the kernels, JIT-compiles the Triton
+        kernels, warms the allocator), then reset the device state."""
+        for L in sorted({int(x) for x in prompt_lengths}):
+            # max_new_tokens must exceed the chunk size so a decode chunk
+            # dispatches; keep the requested prefill length near max_seq
+            L = max(1, min(L, self.max_seq - 2))
+            mnt = max(1, min(self.chunk_size + 1, self.max_seq - L))
+            self.submit([0] * L, max_new_tokens=mnt)
+        while (self.queue or self._admitting or self._inflight
+               or any(s is not None for s in self.slots)):
+            self.step()
+        self.state.lengths.zero_()
+        self.state.k_stage.zero_()
+        self.state.v_stage.zero_()
+        return self
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 32,
+               stop: Optional[list[list[int]]] = None,
+               stop_texts: Optional[list[str]] = None) -> Request:
+        # validate BEFORE the queue-full check: a terminally-invalid
+        # request must get its 400, not a retryable 429
+        if len(prompt) + max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_seq {self.max_seq}"
+            )
+        if stop_texts and not hasattr(self.tokenizer, "decode_bytes"):
+            raise ValueError("stop_texts requires a tokenizer with decode_bytes")
+        if len(self.queue) >= self.max_queue:
+            raise QueueFullError(f"engine queue full ({len(self.queue)}/{self.max_queue})")
+        req = Request(self._rid, prompt, max_new_tokens,
+                      stop=[list(s) for s in (stop or []) if s],
+                      stop_texts=[t for t in (stop_texts or []) if t])
+        self._rid += 1
+        self.queue.append(req)
+        return req
+
+    def submit_text(self, text: str, max_new_tokens: int = 32,
+                    stop: Optional[list[str]] = None) -> Request:
+        if self.tokenizer is None:
+            raise ValueError("Engine was built without a tokenizer")
+        # stops are matched on DECODED text, not token ids
+        return self.submit(self.tokenizer.encode(text), max_new_tokens, stop_texts=stop)
+
+    def decode_text(self, req: Request) -> str:
+        if self.tokenizer is None:
+            raise ValueError("Engine was built without a tokenizer")
+        return self.tokenizer.decode(req.out)
+
+    def cancel(self, req) -> bool:
+        """Cancel a request by object or rid. Queued requests are dropped;
+        active requests free their slot immediately (tokens already in
+        `req.out` are kept). Tokens for the slot in inflight chunks are
+        discarded by `_collect`. Returns True if the request was live."""
+        if isinstance(req, int):
+            rid = req
+            req = next(
+                (r for r in self.queue if r.rid == rid),
+                next((r for r in self.slots if r is not None and r.rid == rid), None),
+            )
+            if req is None:
+                return False
+        if req.done:
+            return False
+        if req in self.queue:
+            self.queue.remove(req)
+            req.done = req.cancelled = True
+            return True
+        for slot, r in enumerate(self.slots):
+            if r is req:
+                req.done = req.cancelled = True
+                self.slots[slot] = None
+                self._admitting.pop(slot, None)
+                self.state.lengths[slot] = 0
+                return True
+        return False
+
+    def _admit(self):
+        """Assign queued requests to free slots and advance admission.
+
+        Long prompts admit INCREMENTALLY: their chunked prefill is split
+        across engine steps — `prefill_chunks_per_step` chunks per step(),
+        round-robin over admitting slots — so active decode streams keep
+        producing tokens while a long prompt admits. Short prompts admit
+        in one step."""
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            self.slots[slot] = req
+            L = len(req.prompt)
+            if L > self.prefill_chunk:
+                C = self.prefill_chunk
+                n_chunks = -(-L // C)
+                nl, kh, e = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+                buf = (nl, 1, kh, n_chunks * C, e)
+                self._admitting[slot] = {
+                    "req": req,
+                    "ks": torch.zeros(buf, dtype=torch.bfloat16, device=self.device),
+                    "vs": torch.zeros(buf, dtype=torch.bfloat16, device=self.device),
+                    "ci": 0,
+                    "n_chunks": n_chunks,
+                    "L": L,
+                    "logits": None,
+                }
+                continue
+            self._admit_one(slot, req, L)
+        burst = 0
+        while self._admitting:
+            order = sorted(self._admitting)
+            pick = next((s for s in order if s > self._admit_rr), order[0])
+            self._admit_rr = pick
+            st = self._admitting[pick]
+            C = self.prefill_chunk
+            ci = st["ci"]
+            chunk = st["req"].prompt[ci * C : (ci + 1) * C]
+            chunk = chunk + [0] * (C - len(chunk))
+            st["logits"], st["ks"], st["vs"] = self._prefill_chunk_fn(
+                self.params, torch.tensor([chunk], device=self.device),
+                st["ks"], st["vs"], ci * C,
+            )
+            st["ci"] += 1
+            if st["ci"] == st["n_chunks"]:
+                del self._admitting[pick]
+                L = st["L"]
+                logits = st["logits"][:, (L - 1) - (st["n_chunks"] - 1) * C]
+                self._finalize_admit(pick, st["req"], logits, st["ks"], st["vs"], L)
+            burst += 1
+            if burst >= self.prefill_chunks_per_step:
+                break
+
+    def _admit_one(self, slot, req, L):
+        """Single-step admission: bucketed prefill, then finalize. Prompts
+        pad to a power-of-two bucket (at least 64)."""
+        bucket = max(64, 1 << (L - 1).bit_length())
+        tokens = torch.tensor([req.prompt + [0] * (bucket - L)], device=self.device)
+        logits_seq, ks, vs = self._prefill(self.params, tokens)
+        self._finalize_admit(slot, req, logits_seq[:, L - 1], ks, vs, L)
+
+    def _finalize_admit(self, slot, req, logits, ks, vs, L):
+        """Write prefilled K/V into the slot, sample + record the first
+        token, and activate (or immediately retire) the slot."""
+        # in-place slice assignment of the whole bucket width: rows beyond
+        # L are invisible (decode masks by lengths, flushes overwrite them)
+        S = self.state.k.shape[3]
+        W = min(ks.shape[3], S)
+        self.state.k[:, slot, :, :W] = ks[:, 0, :, :W]
+        self.state.v[:, slot, :, :W] = vs[:, 0, :, :W]
+        self.state.lengths[slot] = L
+        # sample the prefill token with the same settings as decode
+        first = int(sample_tokens(logits, self._gen, self.temperature, self.top_k,
+                                  self.top_p, self.min_p)[0])
+        self.state.last_token[slot] = first
+        req.out.append(first)
+        # stop-sequence check FIRST so a final token that completes a stop
+        # gets stripped consistently
+        if (self._hit_stop(req)
+                or (self.eos_id is not None and first == self.eos_id)
+                or req.max_new_tokens <= 1):
+            req.done = True
+            self.slots[slot] = None
+            self.state.lengths[slot] = 0
+
+    def step(self):
+        """Admit pending requests, dispatch one decode CHUNK, and collect
+        tokens from the oldest inflight chunk once the pipeline is full
+        (or on drain)."""
+        self._admit()
+        live = {s: r for s, r in enumerate(self.slots)
+                if r is not None and s not in self._admitting}
+        dispatched = False
+        if live:
+            toks = self._chunk(self.params, self.state, self._gen)
+            # snapshot slot->request at dispatch time: collection must not
+            # attribute this chunk's tokens to a request admitted into a
+            # recycled slot later
+            self._inflight.append((toks, live))
+            dispatched = True
+        keep = self.pipeline_depth - 1 if dispatched else 0
+        while len(self._inflight) > keep:
+            self._collect(*self._inflight.pop(0))
+        return dispatched or bool(self._inflight)
+
+    @staticmethod
+    def _trim_decode_state(req):
+        """Drop cached decode state for tokens no longer in req.out."""
+        while len(req._piece_lens) > len(req.out):
+            del req._dec_bytes[len(req._dec_bytes) - req._piece_lens.pop():]
+
+    def _hit_stop(self, req) -> bool:
+        """True if req.out now ends with one of its stop sequences (token
+        ids) or its decoded text contains one of its stop strings; the
+        matched tokens/text are removed from the output.
+
+        Stop strings are matched INCREMENTALLY on decoded bytes: only the
+        newly-landed tokens are decoded, and only the tail a new match
+        could occupy is searched."""
+        for seq in req.stop:
+            n = len(seq)
+            if len(req.out) >= n and req.out[-n:] == seq:
+                del req.out[-n:]
+                self._trim_decode_state(req)
+                return True
+        if req.stop_texts:
+            decode_bytes = self.tokenizer.decode_bytes
+            stop_bytes = [t.encode("utf-8") for t in req.stop_texts]
+            max_stop = max(len(b) for b in stop_bytes)
+            added = 0
+            for tok in req.out[len(req._piece_lens):]:
+                piece = decode_bytes([tok])
+                req._dec_bytes.extend(piece)
+                req._piece_lens.append(len(piece))
+                added += len(piece)
+            start = max(0, len(req._dec_bytes) - added - max_stop + 1)
+            best = min((p for p in (req._dec_bytes.find(b, start) for b in stop_bytes)
+                        if p >= 0), default=-1)
+            if best >= 0:
+                # strip tokens until the decoded bytes no longer reach the
+                # match (a token spanning the boundary is removed whole)
+                while req.out and len(req._dec_bytes) > best:
+                    req.out.pop()
+                    self._trim_decode_state(req)
+                return True
+        return False
+
+    def _collect(self, toks_dev, live):
+        toks = toks_dev.cpu().tolist()  # waits for the chunk: (chunk, B)
+        for slot, req in live.items():
+            if req.done:
+                # finished in an earlier chunk while this one was already
+                # in flight; its tokens for the slot are surplus
+                continue
+            for t in range(len(toks)):
+                tok = toks[t][slot]
+                req.out.append(tok)
+                full = len(req.prompt) + len(req.out) >= self.max_seq
+                # stop check FIRST (unconditionally): a final allowed token
+                # (or EOS) that also completes a stop sequence must still
+                # be stripped from req.out
+                stopped = self._hit_stop(req)
+                if (stopped or len(req.out) >= req.max_new_tokens
+                        or (self.eos_id is not None and tok == self.eos_id) or full):
+                    # mid-chunk finish: the slot kept decoding to chunk end
+                    # (bounded waste); surplus tokens are discarded
+                    req.done = True
+                    if self.slots[slot] is req:
+                        self.slots[slot] = None
+                    self.state.lengths[slot] = 0
+                    break
+
+    def run(self, max_steps: int = 10_000):
+        steps = 0
+        while ((self.queue or any(s is not None for s in self.slots)
+                or self._inflight or self._admitting) and steps < max_steps):
+            self.step()
+            steps += 1

@@ -1,0 +1,117 @@
+"""Build the CUDA kernels in `nnop_tpu_torch/csrc/` and load them with ctypes.
+
+The sources have a plain C interface (no PyTorch headers), so one `nvcc`
+call builds them in seconds; `torch.utils.cpp_extension` would take
+minutes. The library goes into `build/nnop_tpu_torch/<hash>/` at the root
+of the checkout, keyed by a hash of the sources and flags, and is built
+at first use. Each C entry point returns `cudaGetLastError()` after its
+launch; the op wrappers raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "nnop_tpu_torch")
+LIB_NAME = "libnnop_tpu_torch.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-lineinfo", "-Xptxas", "-v",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points and their argument types (pointers and the stream are
+# c_void_p: ctypes would otherwise pass them as 32-bit ints)
+SIGNATURES = {
+    # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset, stream
+    "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k_cache, v_cache, k_stage, v_stage, lengths, o,
+    # B, QH, KH, S, E, n_layers, layer, W, staged_n, scale, cache_is_f32, stream
+    "nnop_decode_attention": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    # k_stage, v_stage, k_cache, v_cache, lengths,
+    # B, n_layers, KH, S, W, E, cache_is_f32, stream
+    "nnop_flush_staging": [_P] * 5 + [_I] * 7 + [_P],
+}
+
+
+@dataclasses.dataclass
+class BuildResult:
+    path: str
+    seconds: float  # time spent in nvcc (0 when the library was cached)
+    log: str  # nvcc's output (ptxas register and shared-memory report)
+
+
+def _sources() -> list[str]:
+    return sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+        + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cands.append(os.path.join(cuda_home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME)")
+
+
+def build() -> BuildResult:
+    """Compile csrc/*.cu into one shared library unless a build of the
+    same sources and flags exists. Raises with nvcc's stderr on failure."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+    path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(path):
+        return BuildResult(path, 0.0, "")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    return BuildResult(path, seconds, proc.stdout + proc.stderr)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and return types declared."""
+    lib = ctypes.CDLL(build().path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.nnop_error_string.argtypes = [ctypes.c_int]
+    lib.nnop_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(name: str, err: int):
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        msg = load_library().nnop_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch ({msg})")

@@ -1,0 +1,165 @@
+"""The port's ops (nnop_tpu_torch.ops) against the JAX package's on the CPU.
+
+The same numpy inputs (from a seed) go through the JAX op — its Pallas
+kernels in interpret mode, as the root conftest arranges — and through
+the port's plain path, in float32. Tolerances: 1e-5 for the elementwise
+ops, 5e-5 for attention (sums over keys in another order); the flush is
+a copy and must be exact. The kernels themselves are held to these plain
+versions on the card by tests/test_torch_kernels.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nnop_tpu.ops.attention_decode import decode_attention as j_decode_attention
+from nnop_tpu.ops.flash_attention import flash_attention as j_flash_attention
+from nnop_tpu.ops.flash_attention import flash_attention_chunked as j_flash_attention_chunked
+from nnop_tpu.ops.kv_write import flush_staging as j_flush_staging
+from nnop_tpu.ops.rms_norm import rms_norm as j_rms_norm
+from nnop_tpu.ops.rope import RotaryEmbedding as JRotaryEmbedding
+from nnop_tpu.ops.rope import llama_rope as j_llama_rope
+from nnop_tpu_torch.models.weights import tensor_from_numpy
+from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_attention_chunked, flash_fwd
+from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.rms_norm import rms_norm
+from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    """A JAX or numpy array as a tensor (bf16 stays bf16, bit-exact)."""
+    return tensor_from_numpy(np.asarray(a))
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_rms_norm_matches_jax(offset):
+    rng = np.random.default_rng(0)
+    x, w = _rand(rng, 3, 5, 64), _rand(rng, 64)
+    want = j_rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5, offset=offset)
+    got = rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5, offset=offset)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("scaling", [None, (8.0, 1.0, 4.0, 64)], ids=["plain", "ntk-by-parts"])
+def test_rotary_embedding_matches_jax(scaling):
+    # orig_len 64 puts the NTK ramp inside the 32-dim frequency range
+    pos = np.arange(14, dtype=np.int32).reshape(2, 7) * 3
+    jr = JRotaryEmbedding(32, 10000.0, scaling=scaling)
+    tr = RotaryEmbedding(32, 10000.0, scaling=scaling)
+    np.testing.assert_allclose(tr.inv_freq.numpy(), np.asarray(jr.inv_freq), rtol=1e-6)
+    jc, js = jr(jnp.asarray(pos))
+    tc, ts = tr(torch.from_numpy(pos))
+    assert tc.shape == (2, 7, 32) and tc.dtype == torch.float32
+    _close(tc, jc, 1e-5)
+    _close(ts, js, 1e-5)
+
+
+def test_llama_rope_matches_jax():
+    rng = np.random.default_rng(1)
+    q, k = _rand(rng, 2, 4, 7, 32), _rand(rng, 2, 2, 7, 32)
+    cos, sin = JRotaryEmbedding(32)(jnp.arange(7)[None].repeat(2, 0) + 5)
+    jq, jk = j_llama_rope(jnp.asarray(q), jnp.asarray(k), cos, sin)
+    tq, tk = llama_rope(*(torch.from_numpy(np.array(a)) for a in (q, k, cos, sin)))
+    _close(tq, jq, 1e-5)
+    _close(tk, jk, 1e-5)
+    # sin_sign=-1 inverts the rotation
+    bq, bk = llama_rope(tq, tk, *(torch.from_numpy(np.array(a)) for a in (cos, sin)),
+                        sin_sign=-1.0)
+    _close(bq, q, 1e-5)
+    _close(bk, k, 1e-5)
+
+
+def test_flash_attention_causal_gqa_padded_bucket():
+    """A 23-token prompt padded to a 32-row bucket (GQA 4:2): every row,
+    padding included, matches the JAX kernel."""
+    rng = np.random.default_rng(2)
+    q, k, v = _rand(rng, 1, 4, 32, 32), _rand(rng, 1, 2, 32, 32), _rand(rng, 1, 2, 32, 32)
+    q[:, :, 23:] = k[:, :, 23:] = v[:, :, 23:] = 0.0
+    want = j_flash_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=True)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    _close(got, want, 5e-5)
+
+
+def test_flash_attention_chunked_offset_kpad():
+    """A 16-row chunk at offset 20 of a 48-row buffer whose rows >= 36
+    are padding (kpad)."""
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, 1, 4, 16, 32), _rand(rng, 1, 2, 48, 32), _rand(rng, 1, 2, 48, 32)
+    kpad = (np.arange(48) < 36)[None]
+    want = j_flash_attention_chunked(*(jnp.asarray(a) for a in (q, k, v)),
+                                     causal_offset=20, kpad_mask=jnp.asarray(kpad))
+    got = flash_attention_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal_offset=20, kpad_mask=torch.from_numpy(kpad))
+    _close(got, want, 5e-5)
+
+
+def test_flash_fwd_lse_and_fully_masked_rows():
+    """lse is the row log-sum-exp in nats; a row with no visible key gives
+    zeros (not NaN) — the kernel semantics the plain version keeps."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 8, 16)) for _ in range(3))
+    kpad = torch.zeros((1, 8), dtype=torch.bool)
+    kpad[0, 3:] = True  # rows 0..2 see no key under the causal mask
+    o, lse = flash_fwd(q, k, v, causal=True, scale=0.25, kpad_mask=kpad)
+    assert torch.isfinite(o).all() and (o[:, :, :3] == 0).all()
+    s = torch.einsum("bhqe,bhke->bhqk", q, k) * 0.25
+    mask = kpad[:, None, None, :] & torch.ones(8, 8, dtype=torch.bool).tril()
+    want = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)[:, :, 3:]
+    torch.testing.assert_close(lse[:, :, 3:], want, atol=1e-5, rtol=0)
+
+
+def test_decode_attention_stacked_staging_ragged():
+    """Stacked cache (2 layers), bf16 staging with 3 live rows, ragged
+    lengths including an empty slot (which must give zeros)."""
+    rng = np.random.default_rng(5)
+    B, QH, KH, S, E, NL, W = 3, 4, 2, 64, 32, 2, 32
+    q = _rand(rng, B, QH, 1, E)
+    kc, vc = _rand(rng, NL, B, KH, S, E), _rand(rng, NL, B, KH, S, E)
+    ks = jnp.asarray(_rand(rng, B, NL, KH, W, E), jnp.bfloat16)
+    vs = jnp.asarray(_rand(rng, B, NL, KH, W, E), jnp.bfloat16)
+    lengths = np.array([0, 5, 40], np.int32)
+    want = j_decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                              jnp.asarray(lengths), k_stage=ks, v_stage=vs, staged_n=3,
+                              layer=1)
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+                           torch.from_numpy(lengths), k_stage=_t(ks), v_stage=_t(vs),
+                           staged_n=3, layer=1)
+    assert (got[0] == 0).all()
+    _close(got, want, 5e-5)
+
+
+def test_flush_staging_exact():
+    rng = np.random.default_rng(6)
+    NL, B, KH, S, E, W = 2, 3, 2, 128, 32, 32
+    kc, vc = _rand(rng, NL, B, KH, S, E), _rand(rng, NL, B, KH, S, E)
+    ks = jnp.asarray(_rand(rng, B, NL, KH, W, E), jnp.bfloat16)
+    vs = jnp.asarray(_rand(rng, B, NL, KH, W, E), jnp.bfloat16)
+    lengths = np.array([0, 5, 40], np.int32)
+    jk, jv, _, _ = j_flush_staging(jnp.asarray(kc), jnp.asarray(vc), None, None, ks, vs,
+                                   jnp.asarray(lengths))
+    tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+    out = flush_staging(tk, tv, None, None, _t(ks), _t(vs), torch.from_numpy(lengths))
+    assert out[0] is tk and out[1] is tv  # in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_unported_features_raise_on_the_kernel_path():
+    q = torch.zeros(1, 4, 1, 32)
+    cache = torch.zeros(1, 2, 8, 32, dtype=torch.int8)
+    with pytest.raises(NotImplementedError):
+        decode_attention(q, cache, cache, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        decode_attention(torch.zeros(1, 4, 2, 32), cache.float(), cache.float(),
+                         torch.zeros(1, dtype=torch.int32))
