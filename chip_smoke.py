@@ -1,26 +1,36 @@
-"""Drive the port's Llama-3-8B serving path once on one H100.
+"""Drive the port's Llama-3-8B serving paths once on one H100.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own lines; any failure raises and exits
 non-zero:
   1. device: require an sm_90 card; print its name and power limit.
-  2. build: compile nnop_tpu_torch/csrc/*.cu from this checkout (nvcc).
-  3. kernels: each of the five Hopper kernels on the card at the serving
-     path's shapes (plus edge cases), held against its plain PyTorch
-     version on the same inputs, with both timed by CUDA events.
-  4. main path: Llama-3-8B at full width and depth (random bf16 weights
+  2. build: compile nnop_tpu_torch/csrc/*.cu from this checkout (one nvcc
+     per source, in parallel).
+  3. kernels: each Hopper kernel on the card at the serving paths' shapes
+     (plus edge cases), held against its plain PyTorch version on the same
+     inputs, both timed by CUDA events, with one PyTorch library call that
+     computes the same function timed beside it where there is one.
+  4. bf16 path: Llama-3-8B at full width and depth (random bf16 weights
      from a seeded torch.Generator on the card) behind the port's
      EngineServer; 4 concurrent /v1/completions requests (one through
      chunked admission), launch counters, and the engine's first-token
      logits against models.llama.forward on the plain ops.
-The second-to-last line is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.
+  5. int8 path: the same model with random int8 weights
+     (init_quantized_params), Engine(quantized_kv=True, w8a8=True): the
+     same 4 requests; W8A8 prefill products, weight-only decode products,
+     the int8 KV cache in decode attention and the flush.
+  6. int4 path: packed int4 weights with the int8 KV cache; 2 requests.
+Each serving phase sets the launch counts to 0 just before it serves and
+reads them just after. The second-to-last line is {"kernels": [...]}, the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -34,7 +44,11 @@ import torch
 BF16_TOL = 2e-2
 BF16_TOL_WHY = ("bf16 output: one bf16 ulp is <= 1.6e-2 below magnitude 4, "
                 "and both sides accumulate in fp32 in a different order")
+QMM_TOL_WHY = ("2e-2 * max(1, max|plain|): bf16 output of fp32 sums over K up to 14336 "
+               "taken in another order")
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "f32": 67e12}
 
 
 def check(cond, msg):
@@ -63,8 +77,33 @@ def device_ms(fn, n=20, reps=5):
     return statistics.median(out)
 
 
+def library_ms(name, fn, n=20):
+    """The time of one PyTorch library call computing the kernel's
+    function (a yardstick the port never calls), or None with the error
+    printed when this torch refuses it."""
+    try:
+        return device_ms(fn, n=n)
+    except Exception as e:  # noqa: BLE001 - the yardstick is optional; report why
+        print(f"phase 3 {name}: library call raised {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}")
+        return None
+
+
+def bound(nbytes, ops, kind):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations")
+
+
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def phase_device():
@@ -91,9 +130,36 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
 
 
+class Phase3:
+    """Phase 3's bookkeeping: every case is checked; the main case of each
+    kernel entry keeps its error, times, bound and library time."""
+
+    def __init__(self):
+        self.results = {}
+
+    def report(self, name, case, err, tol, why, ms=None, plain_ms=None, bounds=None,
+               library=None, main=False):
+        """bounds: bound()'s dict for a timed case; library: the library
+        call's ms (main cases; None where there is none)."""
+        timing = "" if ms is None else f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        if bounds is not None:
+            timing += f"; bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']})"
+        if main:
+            timing += "; library " + ("none" if library is None else f"{library:.4f} ms")
+        print(f"phase 3 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:g}: {why})"
+              f"{timing}")
+        check(err <= tol, f"{name} [{case}] error {err} > {tol}")
+        if main:
+            self.results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      library_ms=library, **bounds)
+
+
 def phase_kernels():
-    """Returns {kernel name: {max_abs_err, ms, plain_ms}} at the main
-    shape of each kernel, after checking every case."""
+    """Returns {kernel entry: {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms}} at the main shape of each entry, after checking
+    every case."""
+    import torch.nn.functional as F
+
     from nnop_tpu_torch.ops import naive
     from nnop_tpu_torch.ops.attention_decode import decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
@@ -105,44 +171,41 @@ def phase_kernels():
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     bf = torch.bfloat16
+    p3 = Phase3()
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    results = {}
-
-    def report(name, case, err, tol, why, ms=None, plain_ms=None, main=False):
-        timing = "" if ms is None else f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        print(f"phase 3 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:g}: {why}){timing}")
-        check(err <= tol, f"{name} [{case}] error {err} > {tol}")
-        if main:
-            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-
     # A. rms_norm: decode rows (8) and a prefill chunk (512), width 4096
     w = (0.5 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(bf)
-    for rows, main in ((8, True), (512, False)):
+    for rows in (8, 512):
         x = randn(rows, 4096)
+        lib = (library_ms("rms_norm", lambda: F.rms_norm(x, (4096,), w, 1e-5)) if rows == 8
+               else None)
         err = max_err(rms_norm(x, w, 1e-5), naive.naive_rms_norm(x, w, eps=1e-5))
-        report("rms_norm", f"({rows}, 4096) bf16", err, BF16_TOL, BF16_TOL_WHY,
-               device_ms(lambda: rms_norm(x, w, 1e-5)),
-               device_ms(lambda: naive.naive_rms_norm(x, w, eps=1e-5)), main)
+        p3.report("rms_norm", f"({rows}, 4096) bf16", err, BF16_TOL, BF16_TOL_WHY,
+                  device_ms(lambda: rms_norm(x, w, 1e-5)),
+                  device_ms(lambda: naive.naive_rms_norm(x, w, eps=1e-5)),
+                  bound(2 * nbytes(x) + nbytes(w), 4 * x.numel(), "f32"), lib, rows == 8)
 
     # B. llama_rope: decode (8 slots at ragged positions) and a 512-row chunk
     rope = RotaryEmbedding(128, 500000.0)
-    for (B, L, pos), main in (((8, 1, [[0], [1], [63], [64], [65], [300], [1100], [2100]]), True),
-                              ((1, 512, [list(range(100, 612))]), False)):
+    for (B, L, pos) in ((8, 1, [[0], [1], [63], [64], [65], [300], [1100], [2100]]),
+                        (1, 512, [list(range(100, 612))])):
         q, k = randn(B, 32, L, 128, scale=0.5), randn(B, 8, L, 128, scale=0.5)
         cos, sin = rope(torch.tensor(pos, device=dev))
         got, want = llama_rope(q, k, cos, sin), naive.naive_rope(q, k, cos, sin)
         err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
-        report("llama_rope", f"q ({B}, 32, {L}, 128) bf16", err, BF16_TOL, BF16_TOL_WHY,
-               device_ms(lambda: llama_rope(q, k, cos, sin)),
-               device_ms(lambda: naive.naive_rope(q, k, cos, sin)), main)
+        p3.report("llama_rope", f"q ({B}, 32, {L}, 128) bf16", err, BF16_TOL, BF16_TOL_WHY,
+                  device_ms(lambda: llama_rope(q, k, cos, sin)),
+                  device_ms(lambda: naive.naive_rope(q, k, cos, sin)),
+                  bound(2 * nbytes(q, k) + nbytes(cos, sin), 3 * (q.numel() + k.numel()), "f32"),
+                  None, B == 8)
 
     # C. flash forward: chunked prefill (offset + kpad), bucketed causal,
     #    an offset that is not a tile multiple, a length that is not one
     scale = 128 ** -0.5
-    for case, QL, KL, causal, offset, n_valid, main in (
+    for case, QL, KL, causal, offset, n_valid, is_main in (
         ("chunked: 512 rows at offset 1024 of a 1536 buffer", 512, 1536, True, 1024, 1100, True),
         ("chunked: offset 100 (not a tile multiple), kpad < 612", 512, 1024, True, 100, 612,
          False),
@@ -158,47 +221,203 @@ def phase_kernels():
         o, lse = flash_fwd(q, k, v, **kw)
         o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
         err = max(max_err(o, o_ref), max_err(lse, lse_ref))
-        report("flash_fwd", case, err, BF16_TOL, BF16_TOL_WHY + " (o bf16, lse f32)",
-               device_ms(lambda: flash_fwd(q, k, v, **kw)),
-               device_ms(lambda: naive.naive_attention(q, k, v, **kw), n=5), main)
+        # the (row, key) pairs this case computes: causal from its offset, under kpad
+        cols = torch.arange(KL, device=dev)[None]
+        mask = torch.ones((QL, KL), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= cols <= (offset or 0) + torch.arange(QL, device=dev)[:, None]
+        if n_valid is not None:
+            mask &= cols < n_valid
+        lib = library_ms("flash_fwd", lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)) if is_main else None
+        p3.report("flash_fwd", case, err, BF16_TOL, BF16_TOL_WHY + " (o bf16, lse f32)",
+                  device_ms(lambda: flash_fwd(q, k, v, **kw)),
+                  device_ms(lambda: naive.naive_attention(q, k, v, **kw), n=5),
+                  bound(nbytes(q, k, v, o, lse), 4 * 128 * 32 * int(mask.sum()), "bf16"), lib,
+                  is_main)
 
-    # D/E share the engine's cache: (32, 8, 8, 2144, 128) bf16, staging
-    # (8, 32, 8, 32, 128) bf16, ragged lengths with an empty slot
+    # D/E share the engine's cache: (32, 8, 8, 2144, 128) bf16 or int8 with
+    # per-token scales, staging (8, 32, 8, 32, 128) bf16, ragged lengths
+    # with an empty slot
     NL, B, KH, S, W = 32, 8, 8, 2144, 32
-    lengths = torch.tensor([0, 1, 63, 64, 65, 300, 1100, 2100], dtype=torch.int32, device=dev)
-    k_cache, v_cache = randn(NL, B, KH, S, 128), randn(NL, B, KH, S, 128)
+    len_list = [0, 1, 63, 64, 65, 300, 1100, 2100]
+    lengths = torch.tensor(len_list, dtype=torch.int32, device=dev)
     k_stage, v_stage = randn(B, NL, KH, W, 128), randn(B, NL, KH, W, 128)
-
-    # D. decode attention, T=1, layer 3, 5 staged rows
     q = randn(B, 32, 1, 128)
-    dkw = dict(k_stage=k_stage, v_stage=v_stage, staged_n=5, layer=3)
-    o = decode_attention(q, k_cache, v_cache, lengths, **dkw)
-    o_ref = naive.naive_decode_attention(q, k_cache, v_cache, lengths, **dkw)
-    check(o[0].abs().max().item() == 0.0, "decode: the empty slot must give zeros")
-    report("decode_attention", "q (8, 32, 1, 128), lengths 0..2100, staged_n 5",
-           max_err(o, o_ref), BF16_TOL, BF16_TOL_WHY,
-           device_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, **dkw)),
-           device_ms(lambda: naive.naive_decode_attention(q, k_cache, v_cache, lengths, **dkw)),
-           True)
-    for n in (0, 32):
-        o = decode_attention(q, k_cache, v_cache, lengths, **{**dkw, "staged_n": n})
-        o_ref = naive.naive_decode_attention(q, k_cache, v_cache, lengths,
-                                             **{**dkw, "staged_n": n})
-        report("decode_attention", f"staged_n {n}", max_err(o, o_ref), BF16_TOL, BF16_TOL_WHY)
+    for mode in ("bf16", "int8"):
+        name = "decode_attention" if mode == "bf16" else "decode_attention_int8"
+        if mode == "bf16":
+            caches, scales = (randn(NL, B, KH, S, 128), randn(NL, B, KH, S, 128)), ()
+        else:
+            caches = tuple(torch.randint(-127, 128, (NL, B, KH, S, 128), generator=gen,
+                                         device=dev, dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand((NL, B, KH, S), generator=gen, device=dev) * 0.02 + 0.01
+                           for _ in range(2))
+        args = (q, *caches, lengths, *scales)
+        for n in (5, 0, 32):
+            dkw = dict(k_stage=k_stage, v_stage=v_stage, staged_n=n, layer=3)
+            o = decode_attention(*args, **dkw)
+            o_ref = naive.naive_decode_attention(*args, **dkw)
+            check(o[0].abs().max().item() == 0.0, "decode: the empty slot must give zeros")
+            if n != 5:
+                p3.report(name, f"staged_n {n}", max_err(o, o_ref), BF16_TOL, BF16_TOL_WHY)
+                continue
+            item = caches[0].element_size()
+            live = sum(len_list) * KH * 128 * 2  # K and V values of the live rows
+            staged = sum(1 for x in len_list if x > 0) * n * KH * 128 * 2
+            moved = (live * item + staged * 2 + nbytes(q, o)
+                     + (sum(len_list) * KH * 2 * 4 if mode == "int8" else 0))
+            ops = 4 * 128 * 32 * (sum(len_list) + staged // (KH * 128 * 2))
+            p3.report(name, f"q (8, 32, 1, 128), {mode} cache (32, 8, 8, 2144, 128), "
+                      "lengths 0..2100, staged_n 5", max_err(o, o_ref), BF16_TOL, BF16_TOL_WHY,
+                      device_ms(lambda: decode_attention(*args, **dkw)),
+                      device_ms(lambda: naive.naive_decode_attention(*args, **dkw)),
+                      bound(moved, ops, "f32"), None, True)
 
-    # E. flush: bit-exact against the plain flush
-    kc, vc = k_cache.clone(), v_cache.clone()
-    flush_staging(kc, vc, None, None, k_stage, v_stage, lengths)
-    naive.naive_flush_staging(k_cache, v_cache, k_stage, v_stage, lengths)
-    err = max(max_err(kc, k_cache), max_err(vc, v_cache))
-    check(torch.equal(kc, k_cache) and torch.equal(vc, v_cache), "flush is not bit-exact")
-    report("flush_staging", "(8, 32, 8, 32, 128) -> (32, 8, 8, 2144, 128)", err, 0.0,
-           "a copy: bit-exact",
-           device_ms(lambda: flush_staging(kc, vc, None, None, k_stage, v_stage, lengths)),
-           device_ms(lambda: naive.naive_flush_staging(k_cache, v_cache, k_stage, v_stage,
-                                                       lengths), n=3),
-           True)
-    return results
+        # E. flush: bit-exact against the plain flush (values and scales)
+        name = "flush_staging" if mode == "bf16" else "flush_staging_int8"
+        cache_args = [*caches, *(scales or (None, None))]
+        got = [t.clone() if t is not None else None for t in cache_args]
+        flush_staging(*got, k_stage, v_stage, lengths)
+        want = [t.clone() if t is not None else None for t in cache_args]
+        naive.naive_flush_staging(want[0], want[1], k_stage, v_stage, lengths, want[2], want[3])
+        pairs = [(g, w_) for g, w_ in zip(got, want) if g is not None]
+        check(all(torch.equal(g, w_) for g, w_ in pairs), f"{name} is not bit-exact")
+        err = max(max_err(g, w_) for g, w_ in pairs)
+        rows = B * NL * KH * W
+        moved = nbytes(k_stage, v_stage) + 2 * rows * 128 * caches[0].element_size() + (
+            2 * rows * 4 if mode == "int8" else 0)
+        p3.report(name, f"(8, 32, 8, 32, 128) -> (32, 8, 8, 2144, 128) {mode}", err, 0.0,
+                  "a copy or the same IEEE quantization: bit-exact",
+                  device_ms(lambda: flush_staging(*got, k_stage, v_stage, lengths)),
+                  device_ms(lambda: naive.naive_flush_staging(
+                      want[0], want[1], k_stage, v_stage, lengths, want[2], want[3]), n=3),
+                  bound(moved, 0, "f32"), None, True)
+        del caches, scales, args, got, want, pairs
+        torch.cuda.empty_cache()
+
+    phase_products(p3, gen, randn)
+    return p3.results
+
+
+def phase_products(p3, gen, randn):
+    """Kernels F, G, H at the 8B serving shapes."""
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.quantization import QTensor, QTensor4
+    from nnop_tpu_torch.ops.quantized_matmul import (
+        quantize_act,
+        quantized_matmul,
+        quantized_matmul4,
+        quantized_matmul_w8a8,
+    )
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    decode = {"wqkv": (4096, 6144), "wo": (4096, 4096), "w_gateup": (4096, 28672),
+              "w_down": (14336, 4096), "lm_head": (4096, 128256)}
+
+    def qtensor(K, N, dtype=torch.int8):
+        vals = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        if dtype != torch.int8:  # fp8 values of the same magnitude range
+            vals = (vals.float() / 127 * 448).to(dtype)
+        scale = torch.full((N,), K ** -0.5 / 74.0, device=dev)
+        return QTensor(vals, scale, 0)
+
+    def tol(ref):
+        return BF16_TOL * max(1.0, ref.float().abs().max().item())
+
+    # F. weight-only int8 / fp8: the five decode products (M = 8), the
+    #    prefill lm_head (M = 512), an fp8 case and a ragged-K case
+    cases = [(8, name, *kn, torch.int8) for name, kn in decode.items()]
+    cases += [(512, "lm_head", 4096, 128256, torch.int8),
+              (8, "w_gateup fp8", 4096, 28672, torch.float8_e4m3fn),
+              (100, "ragged K=300, N=200", 300, 200, torch.int8)]
+    for M, what, K, N, dtype in cases:
+        x, w = randn(M, K), qtensor(K, N, dtype)
+        got, ref = quantized_matmul(x, w), naive.naive_quantized_matmul(x, w)
+        name = "quantized_matmul" if dtype == torch.int8 else "quantized_matmul_fp8"
+        is_main = (M, what) == (8, "w_gateup") or dtype != torch.int8
+        lib = None
+        if is_main:
+            wb = w.values.float().to(bf)
+            if dtype == torch.int8:
+                lib = library_ms(name, lambda: torch.matmul(x, wb))
+            else:
+                x8, wt = x.to(dtype), w.values.t().contiguous().t()
+                one = torch.ones((), device=dev)
+                lib = library_ms(name, lambda: torch._scaled_mm(x8, wt, scale_a=one, scale_b=one,
+                                                               out_dtype=bf))
+        p3.report(name, f"M={M} {what} (K={K}, N={N})", max_err(got, ref), tol(ref),
+                  QMM_TOL_WHY, device_ms(lambda: quantized_matmul(x, w)),
+                  device_ms(lambda: naive.naive_quantized_matmul(x, w), n=3),
+                  bound(nbytes(x, w.values, w.scale, got), 2 * M * K * N, "bf16"), lib, is_main)
+        del x, w, got, ref
+    torch.cuda.empty_cache()
+
+    # G. W8A8 at prefill rows, bf16 output; exact with f32 output
+    for M, what, (K, N) in ((256, "w_gateup", decode["w_gateup"]),
+                            (512, "w_gateup", decode["w_gateup"]),
+                            (256, "w_down", decode["w_down"]),
+                            (512, "w_down", decode["w_down"])):
+        xv, xs = quantize_act(randn(M, K))
+        w = qtensor(K, N)
+        got = quantized_matmul_w8a8((xv, xs), w)
+        ref = naive.naive_quantized_matmul_w8a8(xv, xs, w)
+        is_main, lib = (M, what) == (512, "w_gateup"), None
+        if is_main:
+            exact = quantized_matmul_w8a8((xv, xs), w, out_dtype=torch.float32)
+            exact_ref = naive.naive_quantized_matmul_w8a8(xv, xs, w, torch.float32)
+            check(torch.equal(exact, exact_ref), "W8A8 with f32 output is not exact")
+            p3.report("quantized_matmul_w8a8", f"M={M} {what} f32 output", max_err(exact, exact_ref),
+                      0.0, "exact int32 sums, the same f32 epilogue: bit-exact")
+            lib = library_ms("quantized_matmul_w8a8", lambda: torch._int_mm(xv, w.values))
+        p3.report("quantized_matmul_w8a8", f"M={M} {what} (K={K}, N={N})", max_err(got, ref),
+                  tol(ref), QMM_TOL_WHY, device_ms(lambda: quantized_matmul_w8a8((xv, xs), w)),
+                  device_ms(lambda: naive.naive_quantized_matmul_w8a8(xv, xs, w), n=3),
+                  bound(nbytes(xv, xs, w.values, w.scale, got), 2 * M * K * N, "int8"), lib,
+                  is_main)
+        del xv, xs, w, got, ref
+    torch.cuda.empty_cache()
+
+    # H. int4 at decode and prefill rows
+    for M, what, (K, N) in ((8, "w_gateup", decode["w_gateup"]),
+                            (512, "w_gateup", decode["w_gateup"]),
+                            (8, "w_down", decode["w_down"]),
+                            (512, "w_down", decode["w_down"])):
+        packed = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev,
+                               dtype=torch.int8)
+        w = QTensor4(packed, torch.full((K // 128, N), K ** -0.5 / 4.1, device=dev), 128, 1024)
+        x = randn(M, K)
+        got, ref = quantized_matmul4(x, w), naive.naive_quantized_matmul4(x, w)
+        is_main = (M, what) == (8, "w_gateup")
+        p3.report("quantized_matmul4", f"M={M} {what} (K={K}, N={N})", max_err(got, ref),
+                  tol(ref), QMM_TOL_WHY, device_ms(lambda: quantized_matmul4(x, w)),
+                  device_ms(lambda: naive.naive_quantized_matmul4(x, w), n=3),
+                  bound(nbytes(x, w.packed, w.scale, got), 2 * M * K * N, "bf16"),
+                  _int4pack_ms(x, w) if is_main else None, is_main)
+        del packed, w, x, got, ref
+    torch.cuda.empty_cache()
+
+
+def _int4pack_ms(x, w):
+    """torch._weight_int4pack_mm on the same int4 weights, repacked into
+    its tiled layout (unsigned nibbles q + 8, even K in the high nibble; it
+    dequantizes (u - 8) * scale + zero, so the zeros are 0), timed as the
+    yardstick for kernel H."""
+    from nnop_tpu_torch.ops.quantization import unpack4
+
+    try:
+        q = (unpack4(w) + 8).to(torch.uint8).t().contiguous()  # (N, K) in [0, 15]
+        packed = (q[:, 0::2] << 4 | q[:, 1::2]).contiguous()  # (N, K/2)
+        wp = torch._convert_weight_to_int4pack(packed, 8)
+        scales = w.scale.to(torch.bfloat16)
+        sz = torch.stack([scales, torch.zeros_like(scales)], dim=-1).contiguous()
+        return library_ms("quantized_matmul4",
+                          lambda: torch._weight_int4pack_mm(x, wp, w.group, sz))
+    except Exception as e:  # noqa: BLE001 - the yardstick is optional; report why
+        print(f"phase 3 quantized_matmul4: library call raised {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}")
+        return None
 
 
 def _post(port, payload):
@@ -214,32 +433,33 @@ def _cosine(a, b):
     return (a @ b / (a.norm() * b.norm())).item()
 
 
-def phase_main_path(counters):
+def serve_and_check(tag, params, cfg, counters, engine_kw, n_requests=4, matmul=None):
+    """Serve 4 (or 2) concurrent requests through EngineServer on an
+    engine over `params`, check the answers, the launch counts and the
+    first-token logits against the plain forward, and return the counts."""
     import numpy as np
 
-    from nnop_tpu_torch.models.llama import Llama, LlamaConfig, init_params
+    from nnop_tpu_torch.models.llama import forward
     from nnop_tpu_torch.runtime.engine import Engine
     from nnop_tpu_torch.runtime.server import EngineServer
 
     dev = torch.device("cuda")
-    cfg = LlamaConfig.llama3_8b()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = Llama(cfg, init_params(gen, cfg))
-    eng = Engine(model.params, cfg, max_batch=8, max_seq=2048)
+    eng = Engine(params, cfg, max_batch=8, max_seq=2048, **engine_kw)
     torch.cuda.synchronize()
-    print(f"phase 4 setup: Llama-3-8B random bf16 weights + engine in "
-          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-          f"allocated; cache {tuple(eng.state.k.shape)}")
+    print(f"{tag} setup: engine {engine_kw} in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; cache "
+          f"{tuple(eng.state.k.shape)} {eng.state.k.dtype}")
 
     rng = np.random.default_rng(SEED)
     lens = (150, 280, 400, 1100)  # the 1100-token prompt admits in 3 chunks of 512
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    if n_requests == 2:
+        lens, prompts = lens[1::2], prompts[1::2]
     max_tokens = 32
 
     for c in counters:
-        c.launches = 0
+        c.reset()
     results = [None] * len(prompts)
     srv = EngineServer(eng, port=0).start()
     try:
@@ -258,7 +478,7 @@ def phase_main_path(counters):
             stats = json.loads(r.read())
     finally:
         srv.stop()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = {c.name: c.read() for c in counters}
 
     outs = []
     for n, res in zip(lens, results):
@@ -271,18 +491,23 @@ def phase_main_path(counters):
         outs.append(toks)
     check(stats["requests_completed"] >= len(prompts), f"stats: {stats}")
     check(stats["tokens_generated"] >= len(prompts) * max_tokens, f"stats: {stats}")
-    print(f"phase 4 serve: {len(prompts)} concurrent requests (prompts {lens}), "
+    print(f"{tag} serve: {len(prompts)} concurrent requests (prompts {lens}), "
           f"{len(prompts) * max_tokens} tokens in {wall:.2f} s wall = "
           f"{len(prompts) * max_tokens / wall:.1f} tok/s (observation, not a claim); "
           f"stats {stats}")
-    print(f"phase 4 launches during serving: {launches}")
+    print(f"{tag} launches during serving: {launches}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check(n > 0, f"kernel {name} was not launched on the {tag} path")
 
     # the engine's first-token logits (its bucketed and chunked prefill,
     # on the kernels) against the plain-op forward on the card
-    for n, prompt in ((280, prompts[1]), (1100, prompts[3])):
-        ids = torch.tensor([prompt], device=dev)
+    def plain(toks):
+        return forward(params, torch.tensor([toks], device=dev), cfg, plain=True,
+                       matmul=matmul)[0, -1]
+
+    for n, prompt in zip(lens, prompts):
+        if n not in (280, 1100):
+            continue
         if n <= eng.prefill_chunk:
             padded = torch.tensor([prompt + [0] * (512 - n)], device=dev)
             got = eng._prefill(eng.params, padded)[0][0, n - 1]
@@ -297,22 +522,37 @@ def phase_main_path(counters):
                 chunk = torch.tensor([chunk + [0] * (C - len(chunk))], device=dev)
                 logits, ks, vs = eng._prefill_chunk_fn(eng.params, chunk, ks, vs, ci * C)
             got = logits[0, (n - 1) - (sbuf // C - 1) * C]
-        want = model(ids, plain=True)[0, -1]
+        want = plain(prompt)
         cos = _cosine(got, want)
-        print(f"phase 4 reference: prompt {n}: first-token logits cosine {cos:.6f} "
+        print(f"{tag} reference: prompt {n}: first-token logits cosine {cos:.6f} "
               f"(>= 0.99 required), argmax engine {int(got.argmax())} plain {int(want.argmax())}")
-        check(cos >= 0.99, f"prompt {n}: cosine {cos}")
+        check(cos >= 0.99, f"{tag} prompt {n}: cosine {cos}")
         check(bool(torch.isfinite(got).all()), "non-finite logits")
 
-    toks, greedy = list(prompts[1]), []
+    toks, greedy = list(prompts[1 if n_requests == 4 else 0]), []
     for _ in range(8):
-        nxt = int(model(torch.tensor([toks], device=dev), plain=True)[0, -1].argmax())
+        nxt = int(plain(toks).argmax())
         greedy.append(nxt)
         toks.append(nxt)
-    agree = sum(a == b for a, b in zip(outs[1][:8], greedy))
-    print(f"phase 4 greedy agreement with the plain forward over the first 8 tokens: "
+    agree = sum(a == b for a, b in zip(outs[1 if n_requests == 4 else 0][:8], greedy))
+    print(f"{tag} greedy agreement with the plain forward over the first 8 tokens: "
           f"{agree}/8 (information only)")
+    del eng
     return launches
+
+
+class Counter:
+    """One launch count of a kernel wrapper (`launches`, or a mode's own
+    count such as `int8_launches`), under its entry name."""
+
+    def __init__(self, name, fn, attr="launches"):
+        self.name, self.fn, self.attr = name, fn, attr
+
+    def reset(self):
+        setattr(self.fn, self.attr, 0)
+
+    def read(self):
+        return getattr(self.fn, self.attr)
 
 
 def main():
@@ -323,31 +563,100 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from nnop_tpu_torch.models.llama import LlamaConfig, init_params, init_quantized_params
+    from nnop_tpu_torch.models.quantized import qmatmul
     from nnop_tpu_torch.ops.attention_decode import decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
     from nnop_tpu_torch.ops.kv_write import flush_staging
+    from nnop_tpu_torch.ops.quantized_matmul import (
+        quantized_matmul,
+        quantized_matmul4,
+        quantized_matmul_w8a8,
+    )
     from nnop_tpu_torch.ops.rms_norm import rms_norm
     from nnop_tpu_torch.ops.rope import llama_rope
 
-    kernels = [
-        (rms_norm, "triton", "nnop_tpu_torch/ops/rms_norm.py", "nnop_tpu/ops/rms_norm.py:120"),
-        (llama_rope, "triton", "nnop_tpu_torch/ops/rope.py", "nnop_tpu/ops/rope.py:102"),
-        (flash_fwd, "cuda", "nnop_tpu_torch/csrc/flash_fwd.cu",
-         "nnop_tpu/ops/flash_attention.py:1309"),
-        (decode_attention, "cuda", "nnop_tpu_torch/csrc/decode_attn.cu",
-         "nnop_tpu/ops/attention_decode.py:753"),
-        (flush_staging, "cuda", "nnop_tpu_torch/csrc/kv_flush.cu",
-         "nnop_tpu/ops/kv_write.py:266"),
-    ]
+    decode_src, flush_src = "nnop_tpu_torch/csrc/decode_attn.cu", "nnop_tpu_torch/csrc/kv_flush.cu"
+    qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
+    # entry name -> (counter, route, source, the TPU kernel it replaces)
+    entries = {
+        "rms_norm": (Counter("rms_norm", rms_norm), "triton", "nnop_tpu_torch/ops/rms_norm.py",
+                     "nnop_tpu/ops/rms_norm.py:120"),
+        "llama_rope": (Counter("llama_rope", llama_rope), "triton", "nnop_tpu_torch/ops/rope.py",
+                       "nnop_tpu/ops/rope.py:102"),
+        "flash_fwd": (Counter("flash_fwd", flash_fwd), "cuda", "nnop_tpu_torch/csrc/flash_fwd.cu",
+                      "nnop_tpu/ops/flash_attention.py:1309"),
+        "decode_attention": (Counter("decode_attention", decode_attention), "cuda", decode_src,
+                             "nnop_tpu/ops/attention_decode.py:753"),
+        "flush_staging": (Counter("flush_staging", flush_staging), "cuda", flush_src,
+                          "nnop_tpu/ops/kv_write.py:266"),
+        "decode_attention_int8": (Counter("decode_attention_int8", decode_attention,
+                                          "int8_launches"), "cuda", decode_src,
+                                  "nnop_tpu/ops/attention_decode.py:753"),
+        "flush_staging_int8": (Counter("flush_staging_int8", flush_staging, "int8_launches"),
+                               "cuda", flush_src, "nnop_tpu/ops/kv_write.py:266"),
+        "quantized_matmul": (Counter("quantized_matmul", quantized_matmul), "cuda", qmm_src,
+                             f"{qmm_rep}:108"),
+        "quantized_matmul_w8a8": (Counter("quantized_matmul_w8a8", quantized_matmul_w8a8),
+                                  "cuda", qmm_src, f"{qmm_rep}:256"),
+        "quantized_matmul4": (Counter("quantized_matmul4", quantized_matmul4), "cuda", qmm_src,
+                              f"{qmm_rep}:383"),
+    }
     phase_device()
     phase_build()
     measured = phase_kernels()
     torch.cuda.empty_cache()
-    launches = phase_main_path([fn for fn, *_ in kernels])
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.llama3_8b()
+    launches = {}
+
+    def counters(*names):
+        return [entries[n][0] for n in names]
+
+    # 4. bf16 weights, bf16 cache
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg)
+    launches.update(serve_and_check("phase 4", params, cfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd", "decode_attention", "flush_staging"), {}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. int8 weights (W8A8 prefill, weight-only decode), int8 cache
+    gen.manual_seed(SEED)
+    params = init_quantized_params(gen, cfg, wbits=8)
+    head = params["lm_head"]
+
+    def w8a8_plain(x, w):  # the engine's routing: W8A8 for >= 256 rows, not the lm_head
+        return qmatmul(x, w, plain=True, w8a8=w is not head)
+
+    counts = serve_and_check("phase 5", params, cfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd", "decode_attention_int8", "flush_staging_int8",
+        "quantized_matmul", "quantized_matmul_w8a8"),
+        dict(quantized_kv=True, w8a8=True), matmul=w8a8_plain)
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+    del params, head
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. int4 weights, int8 cache
+    gen.manual_seed(SEED)
+    params = init_quantized_params(gen, cfg, wbits=4)
+    counts = serve_and_check("phase 6", params, cfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd", "decode_attention_int8", "flush_staging_int8",
+        "quantized_matmul4"), dict(quantized_kv=True), n_requests=2,
+        matmul=functools.partial(qmatmul, plain=True))
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     line = {"kernels": [
-        dict(name=fn.__name__, route=route, source=src, replaces=rep,
-             launches=launches[fn.__name__], **measured[fn.__name__])
-        for fn, route, src, rep in kernels
+        dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
+             **measured[name])
+        for name, (_, route, src, rep) in entries.items()
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Command-line entry points of the port: generate / serve on the dense
-configs with floating-point (16-bit) weights; quantized weights are not
-ported yet. Usage:
+configs, with floating-point weights or, with `--wbits 8|4`, int8 or
+packed int4 weights (quantized from the floating-point ones, as the JAX
+package's CLI does), and with `--int8-kv`, an int8 KV cache. Usage:
 
     python -m nnop_tpu_torch.cli generate --model tiny --device cpu --prompt "abcabc"
     python -m nnop_tpu_torch.cli serve --model 8b --port 8080
+    python -m nnop_tpu_torch.cli serve --model 8b --wbits 8 --int8-kv
+    python -m nnop_tpu_torch.cli profile --model 8b --wbits 8 --int8-kv --batch 8
 
 Weights are random from `--seed` unless `--checkpoint` names an npz
 written by the JAX package's save_checkpoint.
@@ -25,8 +28,6 @@ def _build_engine(args, **engine_kw):
     from nnop_tpu_torch.runtime.engine import Engine
     from nnop_tpu_torch.runtime.tokenizer import BPETokenizer, VocabBPETokenizer
 
-    if args.wbits != 16:
-        raise NotImplementedError(f"--wbits {args.wbits}: quantized weights are not ported yet")
     cfg = {
         "8b": LlamaConfig.llama3_8b,
         "tiny": lambda: LlamaConfig.tiny(dtype=torch.float32),
@@ -38,6 +39,10 @@ def _build_engine(args, **engine_kw):
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         params = init_params(gen, cfg)
+    if args.wbits < 16:
+        from nnop_tpu_torch.models.quantized import quantize_params
+
+        params = quantize_params(params, wbits=args.wbits)
     tokenizer = (VocabBPETokenizer.from_file(args.tokenizer)
                  if getattr(args, "tokenizer", None) else BPETokenizer([]))
     return Engine(params, cfg, max_batch=args.batch, max_seq=cfg.max_seq_len,
@@ -71,14 +76,50 @@ def cmd_serve(args):
         srv.stop()
 
 
+def cmd_profile(args):
+    """Profile `--steps` engine steps (one decode chunk each) with every
+    slot live, under torch.profiler: host ms per step, the device's busy
+    share (kernel time over the window) and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _build_engine(args)
+    gen = torch.Generator().manual_seed(args.seed)
+    for _ in range(args.batch):
+        prompt = torch.randint(0, eng.cfg.vocab_size, (args.prompt_len,), generator=gen)
+        eng.submit(prompt.tolist(), max_new_tokens=(args.steps + 4) * eng.chunk_size)
+    while eng.queue or eng._admitting or not eng._inflight:
+        eng.step()  # admit every prompt, then fill the pipeline
+    eng.step()
+    cuda = eng.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            eng.step()
+        sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3  # ms
+    per_step = wall * 1e3 / args.steps
+    print(f"{args.steps} steps x {eng.chunk_size} tokens x {args.batch} slots: "
+          f"{per_step:.1f} ms per step = {args.batch * eng.chunk_size / (per_step / 1e3):.0f} "
+          f"tok/s; device busy {busy:.1f} ms of {wall * 1e3:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:args.top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:100]}")
+
+
 def _common(p):
     p.add_argument("--model", default="tiny", choices=_CONFIGS)
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint", default=None, help="npz from the JAX package")
     p.add_argument("--wbits", type=int, default=16, choices=(4, 8, 16),
-                   help="weight bits (only 16 is ported)")
-    p.add_argument("--int8-kv", action="store_true", help="int8 KV cache (not ported yet)")
+                   help="weight bits: 16 floating point, 8 int8, 4 packed int4")
+    p.add_argument("--int8-kv", action="store_true", help="int8 KV cache")
 
 
 def main(argv=None):
@@ -103,6 +144,14 @@ def main(argv=None):
     sv.add_argument("--tokenizer", default=None,
                     help="HF tokenizer.json path (default: raw bytes)")
     sv.set_defaults(fn=cmd_serve)
+
+    pr = sub.add_parser("profile")
+    _common(pr)
+    pr.add_argument("--batch", type=int, default=8)
+    pr.add_argument("--prompt-len", type=int, default=400)
+    pr.add_argument("--steps", type=int, default=2)
+    pr.add_argument("--top", type=int, default=15, help="kernels to list")
+    pr.set_defaults(fn=cmd_profile)
 
     args = ap.parse_args(argv)
     args.fn(args)

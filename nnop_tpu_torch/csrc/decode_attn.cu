@@ -3,19 +3,20 @@
 //
 // Replaces nnop_tpu/ops/attention_decode.py:decode_attention (_decode_kernel
 // with _decode_step_b / _decode_step_b_flat / _staging_step_b) for a
-// floating-point cache and T = 1.
+// floating-point or int8 cache and T = 1.
 //
 // Bound on the H100: device-memory bandwidth. Each step reads every live
 // cache row of the layer once (lengths[b] * E * 2 values per KV head)
 // against ~4 * G flops per value, far below the flop/byte ridge. The
 // design reads each K and V row once for all G query heads of its KV head
 // (one block per (slot, KV head) holds the G heads) and only live rows
-// (< lengths[b]). A block stages each 32-row K/V tile in shared memory
-// with 16-byte loads issued together (so their latencies overlap), scores
-// one (head, key) pair per thread, and accumulates P V with one output
-// column per thread; the online-softmax state stays on chip. It is the
-// simple form: 64 blocks at the serving batch cannot fill 132 SMs, so
-// split-KV with a combine pass is the next step.
+// (< lengths[b]); an int8 cache halves those bytes and is dequantized as
+// its tile lands in shared memory. A block stages each 32-row K/V tile in
+// shared memory with 16-byte loads issued together (so their latencies
+// overlap), scores one (head, key) pair per thread, and accumulates P V
+// with one output column per thread; the online-softmax state stays on
+// chip. It is the simple form: 64 blocks at the serving batch cannot fill
+// 132 SMs, so split-KV with a combine pass is the next step.
 //
 // Semantics (attention_decode.py:48-171, 404-481): lengths[b] counts
 // FLUSHED tokens, so cache rows [0, lengths[b]) are live; staging rows
@@ -24,6 +25,15 @@
 // PV product; the staging part runs with q and P rounded to bf16. Query
 // row g of KV head kh is query head kh * G + g. A slot with no live key
 // writes zeros (l == 0 is guarded).
+//
+// int8 cache (the engine's TPU path, _decode_step_b_flat, :282-401): per
+// token f32 scales k_scale/v_scale (n_layers, B, KH, S). q is rounded to
+// bf16 for the cache part too; a score is (q . k) * scale * k_scale[key];
+// the softmax max and sum are taken before the V scale, which is folded
+// into P; P * v_scale is rounded to bf16 for the PV product (int8 values
+// are exact in bf16).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -41,6 +51,7 @@ struct DecodeSmem {
   float v[kTile][kRow];
   float p[kMaxG][kTile];  // scores, then the (rounded) probabilities
   float m[kMaxG], l[kMaxG], alpha[kMaxG];
+  float ks[kTile], vs[kTile];  // the tile's per-token scales (int8 cache)
 };
 
 // Copy n (<= kTile) rows of kE values at src into dst as floats. All of a
@@ -68,14 +79,21 @@ __device__ __forceinline__ void load_tile(const KV* __restrict__ src, int n, flo
 }
 
 // Online-softmax update with the n (<= kTile) live keys at kt / vt (rows
-// of kE). PT is the type P is rounded to for the PV product.
+// of kE). PT is the type P is rounded to for the PV product. ksc / vsc:
+// the keys' int8 scales, or null for a floating-point tile.
 template <typename KV, typename PT>
 __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV* __restrict__ vt,
-                                            int n, int G, float scale, DecodeSmem& sm,
-                                            float* acc) {
+                                            const float* __restrict__ ksc,
+                                            const float* __restrict__ vsc, int n, int G,
+                                            float scale, DecodeSmem& sm, float* acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool q8 = ksc != nullptr;
   load_tile(kt, n, sm.k);
   load_tile(vt, n, sm.v);
+  if (q8 && threadIdx.x < n) {
+    sm.ks[threadIdx.x] = ksc[threadIdx.x];
+    sm.vs[threadIdx.x] = vsc[threadIdx.x];
+  }
   __syncthreads();
   // scores: one (query head, key) pair per thread
   for (int i = threadIdx.x; i < G * kTile; i += kThreads) {
@@ -84,7 +102,7 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
       float d = 0.f;
 #pragma unroll 16
       for (int e = 0; e < kE; ++e) d += sm.q[gq][e] * sm.k[j][e];
-      sm.p[gq][j] = d * scale;
+      sm.p[gq][j] = q8 ? d * scale * sm.ks[j] : d * scale;
     }
   }
   __syncthreads();
@@ -94,7 +112,9 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
     const float s = lane < n ? sm.p[gq][lane] : nnop::kMaskValue;
     const float m_new = fmaxf(m_old, nnop::warp_max(s));
     const float p = lane < n ? __expf(s - m_new) : 0.f;
-    sm.p[gq][lane] = nnop::round_to<PT>(p);
+    // int8: the V scale folds into P after the sum, P rounds to bf16
+    sm.p[gq][lane] = q8 ? (lane < n ? nnop::round_to<__nv_bfloat16>(p * sm.vs[lane]) : 0.f)
+                        : nnop::round_to<PT>(p);
     const float sum = nnop::warp_sum(p);
     if (lane == 0) {
       const float alpha = __expf(m_old - m_new);
@@ -118,20 +138,27 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
   __syncthreads();  // the next tile overwrites sm.k, sm.v and sm.p
 }
 
-// Grid (KH, B). Caches (n_layers, B, KH, S, kE) of T; staging
-// (B, n_layers, KH, W, kE) bf16 or null; q, o (B, QH, kE) of T.
-template <typename T>
+// Grid (KH, B). Caches (n_layers, B, KH, S, kE) of KV (T, or int8 with
+// scales (n_layers, B, KH, S) f32); staging (B, n_layers, KH, W, kE) bf16
+// or null; q, o (B, QH, kE) of T.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-              const T* __restrict__ v_cache, const __nv_bfloat16* __restrict__ k_stage,
+decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
+              const KV* __restrict__ v_cache, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ k_stage,
               const __nv_bfloat16* __restrict__ v_stage, const int* __restrict__ lengths,
               T* __restrict__ o, int B, int QH, int KH, int S, int n_layers, int layer, int W,
               int staged_n, float scale) {
+  constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
+  using PT = typename std::conditional<kQ8, __nv_bfloat16, KV>::type;
   __shared__ DecodeSmem sm;
   const int kh = blockIdx.x, b = blockIdx.y, G = QH / KH;
   const int len = lengths[b];
   const T* qb = q + ((size_t)b * QH + (size_t)kh * G) * kE;
-  for (int i = threadIdx.x; i < G * kE; i += kThreads) sm.q[i / kE][i % kE] = nnop::to_float(qb[i]);
+  for (int i = threadIdx.x; i < G * kE; i += kThreads) {
+    const float v = nnop::to_float(qb[i]);
+    sm.q[i / kE][i % kE] = kQ8 ? nnop::round_to<__nv_bfloat16>(v) : v;
+  }
   if (threadIdx.x < kMaxG) {
     sm.m[threadIdx.x] = nnop::kMaskValue;
     sm.l[threadIdx.x] = 0.f;
@@ -141,10 +168,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   for (int gq = 0; gq < kMaxG; ++gq) acc[gq] = 0.f;
   __syncthreads();
 
-  const size_t cache_off = (((size_t)layer * B + b) * KH + kh) * (size_t)S * kE;
+  const size_t row_off = (((size_t)layer * B + b) * KH + kh) * (size_t)S;
+  const size_t cache_off = row_off * kE;
   for (int c0 = 0; c0 < len; c0 += kTile) {
-    attend_tile<T, T>(k_cache + cache_off + (size_t)c0 * kE, v_cache + cache_off + (size_t)c0 * kE,
-                      min(kTile, len - c0), G, scale, sm, acc);
+    attend_tile<KV, PT>(k_cache + cache_off + (size_t)c0 * kE,
+                        v_cache + cache_off + (size_t)c0 * kE,
+                        kQ8 ? k_scale + row_off + c0 : nullptr,
+                        kQ8 ? v_scale + row_off + c0 : nullptr, min(kTile, len - c0), G, scale,
+                        sm, acc);
   }
   if (k_stage != nullptr && len > 0 && staged_n > 0) {
     // the staging part runs with q rounded to bf16 (every cache tile is done)
@@ -152,8 +183,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       sm.q[i / kE][i % kE] = nnop::round_to<__nv_bfloat16>(sm.q[i / kE][i % kE]);
     __syncthreads();
     const size_t st_off = (((size_t)b * n_layers + layer) * KH + kh) * (size_t)W * kE;
-    attend_tile<__nv_bfloat16, __nv_bfloat16>(k_stage + st_off, v_stage + st_off, staged_n, G,
-                                              scale, sm, acc);
+    attend_tile<__nv_bfloat16, __nv_bfloat16>(k_stage + st_off, v_stage + st_off, nullptr,
+                                              nullptr, staged_n, G, scale, sm, acc);
   }
   T* ob = o + ((size_t)b * QH + (size_t)kh * G) * kE;
 #pragma unroll
@@ -165,34 +196,51 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
+template <typename T, typename KV>
+cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+                   const void* v_scale, const void* k_stage, const void* v_stage,
+                   const void* lengths, void* o, int B, int QH, int KH, int S, int n_layers,
+                   int layer, int W, int staged_n, float scale, cudaStream_t st) {
+  decode_kernel<T, KV><<<dim3(KH, B), kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_cache), static_cast<const KV*>(v_cache),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const __nv_bfloat16*>(k_stage), static_cast<const __nv_bfloat16*>(v_stage),
+      static_cast<const int*>(lengths), static_cast<T*>(o), B, QH, KH, S, n_layers, layer, W,
+      staged_n, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B, QH, 1, E) and o of the cache dtype (bf16, or f32 when
-// cache_is_f32); caches stacked (n_layers, B, KH, S, E); staging
-// (B, n_layers, KH, W, E) bf16 or null; lengths (B,) int32. E must be 128,
-// QH / KH <= 8 and W <= 32.
+// q (B, QH, 1, E) and o bf16, or f32 when q_is_f32; caches stacked
+// (n_layers, B, KH, S, E) of q's dtype, or int8 when cache_is_int8 with
+// scales (n_layers, B, KH, S) f32; staging (B, n_layers, KH, W, E) bf16 or
+// null; lengths (B,) int32. E must be 128, QH / KH <= 8 and W <= 32.
 extern "C" int nnop_decode_attention(const void* q, const void* k_cache, const void* v_cache,
+                                     const void* k_scale, const void* v_scale,
                                      const void* k_stage, const void* v_stage,
                                      const void* lengths, void* o, int B, int QH, int KH, int S,
                                      int E, int n_layers, int layer, int W, int staged_n,
-                                     float scale, int cache_is_f32, void* stream) {
-  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W)
+                                     float scale, int q_is_f32, int cache_is_int8, void* stream) {
+  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W ||
+      (cache_is_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(KH, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* ks = static_cast<const __nv_bfloat16*>(k_stage);
-  const auto* vs = static_cast<const __nv_bfloat16*>(v_stage);
-  const auto* lens = static_cast<const int*>(lengths);
-  if (cache_is_f32) {
-    decode_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_cache),
-        static_cast<const float*>(v_cache), ks, vs, lens, static_cast<float*>(o), B, QH, KH, S,
-        n_layers, layer, W, staged_n, scale);
-  } else {
-    decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-        static_cast<const __nv_bfloat16*>(v_cache), ks, vs, lens,
-        static_cast<__nv_bfloat16*>(o), B, QH, KH, S, n_layers, layer, W, staged_n, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (cache_is_int8)
+    e = q_is_f32 ? launch<float, int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
+                                         lengths, o, B, QH, KH, S, n_layers, layer, W, staged_n,
+                                         scale, st)
+                 : launch<__nv_bfloat16, int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
+                                                 v_stage, lengths, o, B, QH, KH, S, n_layers,
+                                                 layer, W, staged_n, scale, st);
+  else
+    e = q_is_f32 ? launch<float, float>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
+                                        lengths, o, B, QH, KH, S, n_layers, layer, W, staged_n,
+                                        scale, st)
+                 : launch<__nv_bfloat16, __nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr,
+                                                        k_stage, v_stage, lengths, o, B, QH, KH,
+                                                        S, n_layers, layer, W, staged_n, scale,
+                                                        st);
+  return static_cast<int>(e);
 }

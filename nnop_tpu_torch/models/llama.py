@@ -8,9 +8,11 @@ a tree as a frozen `nn.Module` in eval mode.
 
 Uses rms_norm (Triton), llama_rope (Triton) and flash_attention (CUDA);
 the projections and the MLP are plain `torch.matmul` products, as the JAX
-package leaves them to XLA. `forward(..., plain=True)` runs the plain
-versions of the ops instead, the reference the kernels are held to on the
-card.
+package leaves them to XLA, unless the `matmul=` hook routes them (the
+quantized products: models/quantized.py:qmatmul). `forward(..., plain=True)`
+runs the plain versions of the ops instead, the reference the kernels are
+held to on the card. `init_quantized_params` builds random int8 or int4
+weights directly, without a floating-point copy.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from nnop_tpu_torch.ops.flash_attention import flash_attention
 from nnop_tpu_torch.ops.naive import naive_attention, naive_rms_norm, naive_rope
+from nnop_tpu_torch.ops.quantization import QTensor, QTensor4, _pick_pack_block
 from nnop_tpu_torch.ops.rms_norm import rms_norm
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
 
@@ -213,6 +216,65 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig):
     return params
 
 
+def init_quantized_params(generator: torch.Generator, cfg: LlamaConfig, *, wbits: int = 8):
+    """Random weight-only int8 (wbits=8) or packed int4 (wbits=4) params,
+    built directly as QTensor / QTensor4 on the generator's device: an 8B
+    model never exists in floating point. Scales give the dequantized
+    weights ~1/fan_in variance (the JAX package's init_quantized_params);
+    norms and the embedding table stay floating point.
+
+    Unlike the JAX package, which draws whole int4 bytes (so every nibble
+    has mean -0.5 and the random model's logits collapse onto one
+    direction), each nibble is drawn from [-7, 7]."""
+    if cfg.n_experts is not None:
+        raise NotImplementedError("MoE configs are not ported yet")
+    d, hd = cfg.dim, cfg.head_dim
+    dev = generator.device
+
+    def qdense(shape):
+        fan_in, n = shape
+        if wbits == 4:
+            p = _pick_pack_block(fan_in, 1024)
+            kp = fan_in + (-fan_in % p)
+            lo, hi = (torch.randint(-7, 8, (kp // 2, n), generator=generator, device=dev,
+                                    dtype=torch.int32) for _ in range(2))
+            byte = (lo & 0xF) | ((hi & 0xF) << 4)
+            packed = torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
+            scale = torch.full((kp // 128, n), fan_in**-0.5 / 4.1, device=dev)
+            return QTensor4(packed, scale, 128, p)
+        vals = torch.randint(-127, 128, shape, generator=generator, device=dev,
+                             dtype=torch.int8)
+        return QTensor(vals, torch.full((n,), fan_in**-0.5 / 74.0, device=dev), 0)
+
+    def ones():
+        return torch.ones((d,), dtype=cfg.dtype, device=dev)
+
+    def layer():
+        return {
+            "attn_norm": ones(),
+            "wq": qdense((d, cfg.n_heads * hd)),
+            "wk": qdense((d, cfg.n_kv_heads * hd)),
+            "wv": qdense((d, cfg.n_kv_heads * hd)),
+            "wo": qdense((cfg.n_heads * hd, d)),
+            "mlp_norm": ones(),
+            "w_gate": qdense((d, cfg.hidden_dim)),
+            "w_up": qdense((d, cfg.hidden_dim)),
+            "w_down": qdense((cfg.hidden_dim, d)),
+        }
+
+    embed = torch.randn((cfg.vocab_size, d), generator=generator, device=dev)
+    return {
+        "embed": embed.mul_(0.02).to(cfg.dtype),
+        "layers": [layer() for _ in range(cfg.n_layers)],
+        "final_norm": ones(),
+        "lm_head": qdense((d, cfg.vocab_size)),
+    }
+
+
+def _matmul(x, w):
+    return x @ w
+
+
 def _split_heads(x, n_heads, head_dim):
     # (B, L, H*E) -> (B, H, L, E), contiguous (the kernels take dense rows)
     B, L, _ = x.shape
@@ -248,11 +310,12 @@ def _post(norm, layer, out, cfg: LlamaConfig, key: str):
 
 
 def attention_block(layer, x, cos, sin, cfg: LlamaConfig, *, kpad_mask=None,
-                    causal=True, layer_idx: int = 0, segment_ids=None, plain=False):
+                    causal=True, layer_idx: int = 0, segment_ids=None, plain=False,
+                    matmul=_matmul):
     """rms_norm -> qkv proj -> rope -> flash attention -> out proj (+ x)."""
     norm, rope, attention = _PLAIN_OPS if plain else _KERNEL_OPS
     h = norm(x, layer["attn_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-    xq, xk, xv = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    xq, xk, xv = matmul(h, layer["wq"]), matmul(h, layer["wk"]), matmul(h, layer["wv"])
     if cfg.qkv_bias:
         xq, xk, xv = xq + layer["bq"], xk + layer["bk"], xv + layer["bv"]
     q = _split_heads(xq, cfg.n_heads, cfg.head_dim)
@@ -265,28 +328,31 @@ def attention_block(layer, x, cos, sin, cfg: LlamaConfig, *, kpad_mask=None,
         window=cfg.layer_window(layer_idx) if causal else None,
         softcap=cfg.attn_softcap, scale=cfg.attn_scale,
     )
-    out = _merge_heads(o.to(x.dtype)) @ layer["wo"]
+    out = matmul(_merge_heads(o.to(x.dtype)), layer["wo"])
     return x + _post(norm, layer, out, cfg, "attn_post_norm")
 
 
-def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False):
+def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False, matmul=_matmul):
     """Gated MLP (SwiGLU / GeGLU) with residual."""
     norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
     h = norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-    gate = act_fn(cfg, (h @ layer["w_gate"]).float())
-    up = (h @ layer["w_up"]).float()
-    out = (gate * up).to(x.dtype) @ layer["w_down"]
+    gate = act_fn(cfg, matmul(h, layer["w_gate"]).float())
+    up = matmul(h, layer["w_up"]).float()
+    out = matmul((gate * up).to(x.dtype), layer["w_down"])
     return x + _post(norm, layer, out, cfg, "mlp_post_norm")
 
 
 @torch.no_grad()
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
-            segment_ids=None, plain: bool = False):
+            segment_ids=None, plain: bool = False, matmul=None):
     """Full forward pass: tokens (B, L) int -> logits (B, L, vocab) f32.
 
     positions: (B, L) absolute positions (default arange). plain: run the
     plain versions of rms_norm, rope and attention (the kernels' oracle)
-    instead of the kernels."""
+    instead of the kernels. matmul(x, w): the projection and lm_head
+    product (default x @ w; models.quantized.qmatmul for quantized
+    params)."""
+    mm = matmul or _matmul
     if cfg.n_experts is not None:
         raise NotImplementedError("MoE configs are not ported yet")
     B, L = tokens.shape
@@ -298,14 +364,14 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
     cos, sin = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)(positions)
     for i, layer in enumerate(params["layers"]):
         x = attention_block(layer, x, cos, sin, cfg, kpad_mask=kpad_mask, layer_idx=i,
-                            segment_ids=segment_ids, plain=plain)
-        x = mlp_block(layer, x, cfg, plain=plain)
+                            segment_ids=segment_ids, plain=plain, matmul=mm)
+        x = mlp_block(layer, x, cfg, plain=plain, matmul=mm)
     norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
     x = norm(x, params["final_norm"], cfg.rms_eps, offset=cfg.rms_offset)
     if cfg.tie_embeddings:
         logits = (x @ params["embed"].T).float()
     else:
-        logits = (x @ params["lm_head"]).float()
+        logits = mm(x, params["lm_head"]).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

@@ -7,17 +7,24 @@ until published checkpoints are available to the port.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from nnop_tpu_torch.ops.quantization import QTensor, QTensor4
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """numpy array -> tensor. bf16 arrays (ml_dtypes.bfloat16, as JAX
     hands them out, or the 2-byte void type they are stored as in npz)
-    go through a uint16 view, since torch.from_numpy rejects them."""
+    go through a uint16 view, and fp8 arrays (ml_dtypes.float8_e4m3fn)
+    through a uint8 view, since torch.from_numpy rejects both."""
     a = np.array(a)  # a writable copy: torch shares its memory
     if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device) if device is not None else t
@@ -26,11 +33,23 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
 def params_from_numpy(tree, device=None):
     """The JAX package's parameter tree (nested dicts and lists of numpy
     arrays, e.g. `jax.tree.map(np.asarray, params)`) -> the same tree of
-    tensors on `device`."""
+    tensors on `device`. Its quantized leaves (the JAX QTensor and
+    QTensor4 dataclasses, holding numpy arrays) become this package's,
+    recognized by their fields, byte for byte."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        fields = {f.name for f in dataclasses.fields(tree)}
+        if fields == {"values", "scale", "axis"}:
+            return QTensor(tensor_from_numpy(tree.values, device),
+                           tensor_from_numpy(tree.scale, device), int(tree.axis))
+        if fields == {"packed", "scale", "group", "pack_block"}:
+            return QTensor4(tensor_from_numpy(tree.packed, device),
+                            tensor_from_numpy(tree.scale, device), int(tree.group),
+                            int(tree.pack_block))
+        raise TypeError(f"unknown parameter leaf {type(tree).__name__}")
     return tensor_from_numpy(tree, device)
 
 

@@ -2,12 +2,12 @@
 
 `decode_attention` wraps csrc/decode_attn.cu, which replaces
 nnop_tpu/ops/attention_decode.py:decode_attention (`_decode_kernel`) for
-a floating-point cache and one query token per sequence. See the kernel
-source for what bounds it and how.
+a floating-point or int8 cache and one query token per sequence. See the
+kernel source for what bounds it and how. The int8 mode has its own
+launch count, `decode_attention.int8_launches`, beside `launches`.
 
-The int8 cache (k_scale/v_scale), multi-token speculative verify (T > 1)
-and, on CUDA, the sliding window and softcap are not ported yet and
-raise NotImplementedError.
+Multi-token speculative verify (T > 1) and, on CUDA, the sliding window
+and softcap are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
                      scale: float | None = None, k_stage=None, v_stage=None,
                      staged_n: int | None = None, layer: int | None = None,
                      window: int | None = None, softcap: float | None = None):
-    """Single-token decode attention over a floating-point KV cache.
+    """Single-token decode attention over a floating-point or int8 KV cache.
 
     q: (B, QH, 1, E). k_cache/v_cache: (B, KH, S, E), or STACKED
     (n_layers, B, KH, S, E) with the static `layer` index (the engine's
@@ -36,11 +36,13 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     bf16 staging (B, KH, W, E), or (B, n_layers, KH, W, E) with `layer`,
     holding the `staged_n` newest tokens at positions [lengths[b],
     lengths[b] + staged_n); staged_n is uniform across the batch. A slot
-    with lengths[b] == 0 sees nothing and gets zeros.
-    Returns (B, QH, 1, E) in q.dtype.
+    with lengths[b] == 0 sees nothing and gets zeros. An int8 cache comes
+    with per-token f32 scales k_scale/v_scale of the cache's shape without
+    E. Returns (B, QH, 1, E) in q.dtype.
     """
-    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
-        raise NotImplementedError("decode_attention: the int8 KV cache is not ported yet")
+    quantized = k_cache.dtype == torch.int8
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come with an int8 cache, and only with one")
     B, QH, T, E = q.shape
     if T != 1:
         raise NotImplementedError("decode_attention: multi-token verify is not ported yet")
@@ -49,7 +51,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     staged_n = int(staged_n or 0) if k_stage is not None else 0
     if q.device.type == "cpu":
         return naive_decode_attention(
-            q, k_cache, v_cache, lengths, scale=scale, k_stage=k_stage,
+            q, k_cache, v_cache, lengths, k_scale, v_scale, scale=scale, k_stage=k_stage,
             v_stage=v_stage, staged_n=staged_n, layer=layer, window=window,
             softcap=softcap,
         )
@@ -59,6 +61,8 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
                 f"decode_attention: {name} is not ported to the CUDA kernel yet")
     if layer is None:  # view a plain cache as a one-layer stack
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
+        if quantized:
+            k_scale, v_scale = k_scale[None], v_scale[None]
         if k_stage is not None:
             k_stage, v_stage = k_stage[:, None], v_stage[:, None]
     n_layers, _, KH, S, _ = k_cache.shape
@@ -70,8 +74,15 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
         raise ValueError(f"kernel needs head dim 128 and QH/KH <= {MAX_GROUP}; "
                          f"got E={E}, QH={QH}, KH={KH}")
     check_cuda_operand("q", q, (torch.bfloat16, torch.float32))
-    check_cuda_operand("k_cache", k_cache, (q.dtype,), device=q.device)
-    check_cuda_operand("v_cache", v_cache, (q.dtype,), device=q.device)
+    cache_dtype = torch.int8 if quantized else q.dtype
+    check_cuda_operand("k_cache", k_cache, (cache_dtype,), device=q.device)
+    check_cuda_operand("v_cache", v_cache, (cache_dtype,), device=q.device)
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_cuda_operand(name, t, (torch.float32,), device=q.device)
+            if t.shape != k_cache.shape[:4]:
+                raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
+                                 f"{tuple(k_cache.shape[:4])}")
     check_cuda_operand("lengths", lengths, (torch.int32,), device=q.device)
     if lengths.shape != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)}, expected ({B},)")
@@ -87,15 +98,19 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     o = torch.empty_like(q)
     err = load_library().nnop_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         k_stage.data_ptr() if k_stage is not None else None,
         v_stage.data_ptr() if v_stage is not None else None,
         lengths.data_ptr(), o.data_ptr(), B, QH, KH, S, E, n_layers, int(layer),
-        W, staged_n, float(scale), int(q.dtype == torch.float32),
+        W, staged_n, float(scale), int(q.dtype == torch.float32), int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("decode_attention", err)
     decode_attention.launches += 1
+    if quantized:
+        decode_attention.int8_launches += 1
     return o
 
 
 decode_attention.launches = 0
+decode_attention.int8_launches = 0

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ops: the CPU path and the kernels' oracles.
 
 Counterpart of nnop_tpu/ops/naive.py, plus the plain decode attention
-over a stacked cache with staging and the plain staging flush. Each op
+over a stacked cache with staging, the plain staging flush and the plain
+quantized products (nnop_tpu/ops/quantized_matmul.py). Each op
 module's wrapper runs these for a CPU tensor; `chip_smoke.py` and the
 card tests hold each kernel against them on the same inputs.
 
@@ -18,6 +19,8 @@ uniform average of the JAX oracle).
 from __future__ import annotations
 
 import torch
+
+from nnop_tpu_torch.ops.quantization import INT8_MAX, QTensor, QTensor4, div_exact, unpack4
 
 MASK_VALUE = -1e30
 
@@ -120,6 +123,8 @@ def naive_decode_attention(
     k_cache,
     v_cache,
     lengths,
+    k_scale=None,
+    v_scale=None,
     *,
     scale: float | None = None,
     k_stage=None,
@@ -139,54 +144,142 @@ def naive_decode_attention(
     tokens, at positions lengths[b] + j; it is masked for a slot with
     lengths[b] == 0. The staging part runs with q and P rounded to bf16;
     the cache part rounds P to the cache dtype. Returns (B, QH, 1, E).
+
+    The two parts run in the kernels' order, as two online-softmax steps:
+    the cache part's P is rounded against the cache part's own maximum,
+    and the staging step rescales its sum. (Rounding P against the joint
+    maximum instead would differ from the TPU kernel by up to a bf16 ulp of
+    P wherever the staging part raises the maximum.)
+
+    An int8 cache comes with per-token f32 scales k_scale/v_scale of the
+    cache's shape without E, and follows the engine's TPU path
+    (attention_decode.py:_decode_step_b_flat): q rounded to bf16, the K
+    scale on the score columns after the softmax scale, the softmax sum
+    taken before the V scale, the V scale folded into P, and P rounded
+    to bf16 for the PV product.
     """
     B, QH, T, E = q.shape
     if T != 1:
         raise NotImplementedError("multi-token (speculative) decode not ported yet")
     kc = k_cache[layer] if layer is not None else k_cache
     vc = v_cache[layer] if layer is not None else v_cache
+    quantized = kc.dtype == torch.int8
     KH, S = kc.shape[1], kc.shape[2]
     G = QH // KH
     if scale is None:
         scale = 1.0 / (E**0.5)
     lens = lengths.to(q.device).long()
     qg = q.reshape(B, KH, G, E)
+
+    def scores(qs, keys):
+        return torch.einsum("bkge,bkse->bkgs", qs, keys.float()) * scale
+
+    def softcapped(s):
+        return s if softcap is None else softcap * torch.tanh(s / softcap)
+
+    # the cache part: keys [0, lengths[b]) (within the window)
     pos = torch.arange(S, device=q.device)
-    s_c = torch.einsum("bkge,bkse->bkgs", qg.float(), kc.float()) * scale
-    m_c = (pos[None] < lens[:, None])[:, None, None, :]
+    q_c = qg.to(torch.bfloat16).float() if quantized else qg.float()
+    s_c = scores(q_c, kc)
+    if quantized:
+        ksc = (k_scale[layer] if layer is not None else k_scale).float()
+        vsc = (v_scale[layer] if layer is not None else v_scale).float()
+        s_c = s_c * ksc[:, :, None, :]
+    mask = (pos[None] < lens[:, None])[:, None, None, :]
     if window is not None:
         # the query sits at position lengths + staged_n - 1
-        m_c = m_c & (pos[None] >= (lens + staged_n - window)[:, None])[:, None, None, :]
-    scores, masks = [s_c], [m_c.expand(B, KH, G, S)]
+        mask = mask & (pos[None] >= (lens + staged_n - window)[:, None])[:, None, None, :]
+    p, m, _ = _masked_softmax_stats(softcapped(s_c), mask.expand(B, KH, G, S))
+    l = p.sum(dim=-1, keepdim=True)
+    p = (p * vsc[:, :, None, :]).to(torch.bfloat16) if quantized else p.to(vc.dtype)
+    o = torch.einsum("bkgs,bkse->bkge", p.float(), vc.float())
+    # the staging part: the staged_n newest tokens, q and P in bf16
     if k_stage is not None:
         ks = k_stage[:, layer] if layer is not None else k_stage
         vs = v_stage[:, layer] if layer is not None else v_stage
         W = ks.shape[2]
-        q16 = qg.to(torch.bfloat16).float()
-        s_st = torch.einsum("bkge,bkwe->bkgw", q16, ks.float()) * scale
+        s_st = softcapped(scores(qg.to(torch.bfloat16).float(), ks))
         w = torch.arange(W, device=q.device)
         m_st = (w[None] < staged_n) & (lens[:, None] > 0)
         if window is not None:
             m_st = m_st & (w[None] >= staged_n - window)
-        scores.append(s_st)
-        masks.append(m_st[:, None, None, :].expand(B, KH, G, W))
-    s = torch.cat(scores, dim=-1)
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    p, _, l = _masked_softmax_stats(s, torch.cat(masks, dim=-1))
-    o = torch.einsum("bkgs,bkse->bkge", p[..., :S].to(vc.dtype).float(), vc.float())
-    if k_stage is not None:
-        p_st = p[..., S:].to(torch.bfloat16).float()
-        o = o + torch.einsum("bkgw,bkwe->bkge", p_st, vs.float())
+        m_st = m_st[:, None, None, :].expand(B, KH, G, W)
+        s_st = torch.where(m_st, s_st, torch.full_like(s_st, MASK_VALUE))
+        m_new = torch.maximum(m, s_st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p_st = torch.where(m_st, torch.exp(s_st - m_new), torch.zeros_like(s_st))
+        l = l * alpha + p_st.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.einsum("bkgw,bkwe->bkge", p_st.to(torch.bfloat16).float(),
+                                     vs.float())
+    l = torch.where(l == 0, torch.ones_like(l), l)
     return (o / l).to(q.dtype).reshape(B, QH, 1, E)
 
 
-def naive_flush_staging(k_cache, v_cache, k_stage, v_stage, lengths):
+def naive_flush_staging(k_cache, v_cache, k_stage, v_stage, lengths, k_scale=None,
+                        v_scale=None):
     """In place: cache[l, b, :, lengths[b] : lengths[b] + W] = stage[b, l]
     for every slot and layer, cast to the cache dtype (all W rows, as the
-    TPU flush writes them)."""
+    TPU flush writes them).
+
+    An int8 cache quantizes each staged row as the TPU flush does
+    (kv_write.py:227-231, :155-162): s = max(amax, 1e-8) / 127 goes to the
+    scale cache, and the values are clip(round(x / max(s, 1e-8)), ±127)."""
     W = k_stage.shape[3]
     for b, base in enumerate(lengths.tolist()):
-        for cache, stage in ((k_cache, k_stage), (v_cache, v_stage)):
+        for cache, scales, stage in ((k_cache, k_scale, k_stage), (v_cache, v_scale, v_stage)):
             rows = min(W, cache.shape[3] - base)
-            cache[:, b, :, base : base + rows] = stage[b, :, :, :rows].to(cache.dtype)
+            x = stage[b, :, :, :rows].float()
+            if cache.dtype == torch.int8:
+                s = div_exact(torch.clamp(x.abs().amax(dim=-1), min=1e-8), INT8_MAX)
+                q = torch.round(x / torch.clamp(s, min=1e-8)[..., None])
+                cache[:, b, :, base : base + rows] = torch.clamp(q, -INT8_MAX, INT8_MAX).to(
+                    torch.int8)
+                scales[:, b, :, base : base + rows] = s
+            else:
+                cache[:, b, :, base : base + rows] = stage[b, :, :, :rows].to(cache.dtype)
+
+
+# ---- quantized products (nnop_tpu/ops/quantized_matmul.py) ---------------
+
+
+def _compute_dtype(x):
+    """bf16 products for 16-bit activations, f32 for f32 activations, as
+    the TPU kernels pick (quantized_matmul.py:95)."""
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+
+
+def naive_quantized_matmul(x, w: QTensor, out_dtype=None):
+    """x (..., K) @ w (K, N) int8/fp8 with per-N scales: both operands in
+    the compute dtype, fp32 accumulation, the scale applied once to the
+    fp32 sum. Returns (..., N) in out_dtype (default x.dtype)."""
+    ct = _compute_dtype(x)
+    acc = x.to(ct).float() @ w.values.float().to(ct).float()
+    return (acc * w.scale).to(out_dtype or x.dtype)
+
+
+def naive_quantized_matmul4(x, w: QTensor4, out_dtype=None):
+    """x (..., K) @ packed int4 w: each group scale folded into its
+    weights in f32 and the result rounded to the compute dtype, then an
+    fp32-accumulated product. K of x is zero-padded to the packed K."""
+    ct = _compute_dtype(x)
+    xp = torch.nn.functional.pad(x, (0, w.k_dim - x.shape[-1]))
+    wd = (unpack4(w).float() * w.scale.repeat_interleave(w.group, dim=0)).to(ct)
+    return (xp.to(ct).float() @ wd.float()).to(out_dtype or x.dtype)
+
+
+def quantize_act(x):
+    """Per-row symmetric int8 activation quantization (plain in the JAX
+    package too): x (..., K) -> (values int8 (..., K), scale (..., 1) f32)."""
+    xf = x.float()
+    scale = div_exact(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8), INT8_MAX)
+    values = torch.clamp(torch.round(xf / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return values, scale
+
+
+def naive_quantized_matmul_w8a8(xv, xs, w: QTensor, out_dtype=torch.bfloat16):
+    """int8 activations xv (..., K) with per-row scales xs (..., 1) times
+    int8 weights: the integer product exactly (in float64: K * 127^2 is
+    far beyond f32's 2^24 but inside f64's 2^53), rounded to f32 as an
+    int32 sum is, then (acc * xs) * ws in f32."""
+    acc = (xv.double() @ w.values.double()).float()
+    return (acc * xs.float() * w.scale).to(out_dtype)

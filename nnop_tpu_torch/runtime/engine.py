@@ -1,8 +1,9 @@
 """Inference engine: chunked staged decode + continuous batching, linear mode.
 
-Counterpart of nnop_tpu/runtime/engine.py for floating-point weights and
-a floating-point (non-paged) KV cache. The design is the JAX engine's,
-so greedy token streams match it token for token:
+Counterpart of nnop_tpu/runtime/engine.py for floating-point or quantized
+weights (int8/fp8 and packed int4, models/quantized.py) and a
+floating-point or int8 (non-paged) KV cache. The design is the JAX
+engine's, so greedy token streams match it token for token:
 
 * `make_decode_chunk` runs `chunk_size` decode steps per dispatch. Each
   step writes its K/V token into a bf16 STAGING buffer (in place), and
@@ -18,10 +19,15 @@ so greedy token streams match it token for token:
 * Pipelined collection: PyTorch launches are asynchronous, so the host
   enqueues the next chunk while the card runs the previous one, and
   `_collect` reads tokens one chunk late (`pipeline_depth=2`).
+* Quantized weights run through the fused-dequant products (`qmatmul`):
+  weight-only at decode, and W8A8 (per-row int8 activations) for the
+  prefill products of at least 256 rows when `w8a8` (the default); the
+  lm_head stays weight-only. `quantized_kv` keeps int8 caches with one
+  f32 scale per token: admission quantizes the prefilled rows, the flush
+  quantizes the staged ones, and decode attention dequantizes.
 
-Paged KV, the prompt prefix cache, speculative decoding, the int8 KV cache,
-quantized weights and per-token logprobs are not ported yet: asking for
-them raises NotImplementedError.
+Paged KV, the prompt prefix cache, speculative decoding and per-token
+logprobs are not ported yet: asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ from typing import Optional
 import torch
 
 from nnop_tpu_torch.models.llama import LlamaConfig, _merge_heads, _split_heads, act_fn
+from nnop_tpu_torch.models.quantized import qmatmul
 from nnop_tpu_torch.ops.attention_decode import decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_attention_chunked
 from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.quantization import INT8_MAX, QTensor, QTensor4, div_exact
 from nnop_tpu_torch.ops.rms_norm import rms_norm
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
 
@@ -43,6 +51,10 @@ STAGE_W = 32  # staging capacity (rows per slot and layer); chunk_size may be le
 
 
 # ---- family-aware building blocks (shared by every engine path) --------
+# Products go through models.quantized.qmatmul: QTensor / QTensor4 weights
+# to the fused-dequant kernels, plain weights to x @ w. w8a8 is the
+# prefill builders' explicit flag (the JAX engine's _W8A8 context
+# variable): int8 products of >= 256 rows run W8A8.
 
 
 def _embed_tokens(params, cfg: LlamaConfig, tokens):
@@ -56,17 +68,19 @@ def _lm_logits(params, cfg: LlamaConfig, x):
     if cfg.tie_embeddings:
         logits = (x @ params["embed"].T).float()
     else:
-        logits = (x @ params["lm_head"]).float()
+        # weight-only even under w8a8: the logits are the most
+        # argmax-sensitive product
+        logits = qmatmul(x, params["lm_head"]).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
 
 
-def _layer_qkv(layer, h, cfg: LlamaConfig):
+def _layer_qkv(layer, h, cfg: LlamaConfig, w8a8: bool = False):
     """Q/K/V projections through the fused wqkv (+ the Qwen2 bias)."""
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
-    qkv = h @ layer["wqkv"]
+    qkv = qmatmul(h, layer["wqkv"], w8a8=w8a8)
     if "bqkv" in layer:
         qkv = qkv + layer["bqkv"]
     xq, xk, xv = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
@@ -83,31 +97,31 @@ def _post_norm(layer, out, cfg: LlamaConfig, key: str):
     return out
 
 
-def _attn_out(layer, o, x, cfg: LlamaConfig):
+def _attn_out(layer, o, x, cfg: LlamaConfig, w8a8: bool = False):
     """Output projection + optional post-norm + residual add."""
-    out = _merge_heads(o.to(x.dtype)) @ layer["wo"]
+    out = qmatmul(_merge_heads(o.to(x.dtype)), layer["wo"], w8a8=w8a8)
     return x + _post_norm(layer, out, cfg, "attn_post_norm")
 
 
-def _layer_mlp(layer, x, cfg: LlamaConfig):
+def _layer_mlp(layer, x, cfg: LlamaConfig, w8a8: bool = False):
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-    gu = (h @ layer["w_gateup"]).float()
+    gu = qmatmul(h, layer["w_gateup"], w8a8=w8a8).float()
     gate = act_fn(cfg, gu[..., : cfg.hidden_dim])
     up = gu[..., cfg.hidden_dim :]
-    out = (gate * up).to(x.dtype) @ layer["w_down"]
+    out = qmatmul((gate * up).to(x.dtype), layer["w_down"], w8a8=w8a8)
     return x + _post_norm(layer, out, cfg, "mlp_post_norm")
 
 
-def _forward_layers(params, cfg: LlamaConfig, x, cos, sin, attend):
+def _forward_layers(params, cfg: LlamaConfig, x, cos, sin, attend, w8a8: bool = False):
     """The decoder stack + final norm + logits, shared by prefill, chunked
     prefill and decode. attend(li, q, k, v) -> o runs layer li's attention
     with whatever K/V bookkeeping the caller's path needs."""
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-        q, k, v = _layer_qkv(layer, h, cfg)
+        q, k, v = _layer_qkv(layer, h, cfg, w8a8)
         q, k = llama_rope(q, k, cos, sin)
-        x = _attn_out(layer, attend(li, q, k, v), x, cfg)
-        x = _layer_mlp(layer, x, cfg)
+        x = _attn_out(layer, attend(li, q, k, v), x, cfg, w8a8)
+        x = _layer_mlp(layer, x, cfg, w8a8)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, offset=cfg.rms_offset)
     return _lm_logits(params, cfg, x)
 
@@ -119,30 +133,47 @@ class EngineState:
     `lengths` counts FLUSHED tokens (the valid cache prefix); tokens
     generated inside the current decode chunk live in the bf16 staging
     buffers until `flush_staging` moves them into the caches at chunk end.
+    An int8 cache carries one f32 scale per token in k_scale / v_scale.
     """
 
-    k: torch.Tensor  # (n_layers, B, KH, S, E)
+    k: torch.Tensor  # (n_layers, B, KH, S, E) cfg.dtype or int8
     v: torch.Tensor
     lengths: torch.Tensor  # (B,) int32
     last_token: torch.Tensor  # (B,) int64
     k_stage: torch.Tensor  # (B, n_layers, KH, STAGE_W, E) bf16
     v_stage: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # (n_layers, B, KH, S) f32, int8 cache only
+    v_scale: Optional[torch.Tensor] = None
 
 
-def init_state(cfg: LlamaConfig, batch: int, max_seq: int, device) -> EngineState:
+def init_state(cfg: LlamaConfig, batch: int, max_seq: int, device,
+               quantized: bool = False) -> EngineState:
     nl, kh, e = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    cache_dtype = torch.int8 if quantized else cfg.dtype
     return EngineState(
-        k=zeros((nl, batch, kh, max_seq, e), cfg.dtype),
-        v=zeros((nl, batch, kh, max_seq, e), cfg.dtype),
+        k=zeros((nl, batch, kh, max_seq, e), cache_dtype),
+        v=zeros((nl, batch, kh, max_seq, e), cache_dtype),
         lengths=zeros((batch,), torch.int32),
         last_token=zeros((batch,), torch.int64),
         k_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
         v_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
+        k_scale=zeros((nl, batch, kh, max_seq), torch.float32) if quantized else None,
+        v_scale=zeros((nl, batch, kh, max_seq), torch.float32) if quantized else None,
     )
+
+
+def _quant_token(x):
+    """Per-token symmetric int8 over the last axis (the JAX engine's
+    admission quantizer): x (..., L, E) -> (int8 values, f32 scales
+    (..., L))."""
+    xf = x.float()
+    scale = div_exact(torch.clamp(xf.abs().amax(dim=-1), min=1e-8), INT8_MAX)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return q, scale
 
 
 def filtered_logits(logits, temperature: float, top_k: int = 0,
@@ -183,6 +214,19 @@ def sample_tokens(logits, generator: Optional[torch.Generator], temperature: flo
     return (probs / race).argmax(dim=-1)
 
 
+def _cat_columns(ws):
+    """Concatenate (K, N_i) weights along N: plain tensors, QTensors
+    (values and per-N scales) or QTensor4s (packed planes and group
+    scales; the same K packing for all)."""
+    if isinstance(ws[0], QTensor):
+        return QTensor(torch.cat([w.values for w in ws], dim=1),
+                       torch.cat([w.scale for w in ws], dim=0), 0)
+    if isinstance(ws[0], QTensor4):
+        return QTensor4(torch.cat([w.packed for w in ws], dim=1),
+                        torch.cat([w.scale for w in ws], dim=1), ws[0].group, ws[0].pack_block)
+    return torch.cat(ws, dim=1)
+
+
 def fuse_decode_weights(params):
     """Concatenate per-layer projections for fewer launches in decode:
     wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup (biases too)."""
@@ -191,8 +235,8 @@ def fuse_decode_weights(params):
     for layer in params["layers"]:
         fused = {k: v for k, v in layer.items()
                  if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
-        fused["wqkv"] = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=1)
-        fused["w_gateup"] = torch.cat([layer["w_gate"], layer["w_up"]], dim=1)
+        fused["wqkv"] = _cat_columns([layer["wq"], layer["wk"], layer["wv"]])
+        fused["w_gateup"] = _cat_columns([layer["w_gate"], layer["w_up"]])
         if "bq" in layer:
             fused["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
         out["layers"].append(fused)
@@ -222,7 +266,7 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
                 state.k_stage[:, li, :, i] = k[:, :, 0]
                 state.v_stage[:, li, :, i] = v[:, :, 0]
                 return decode_attention(
-                    q, state.k, state.v, state.lengths,
+                    q, state.k, state.v, state.lengths, state.k_scale, state.v_scale,
                     k_stage=state.k_stage, v_stage=state.v_stage, staged_n=i + 1,
                     layer=li, window=cfg.layer_window(li),
                     softcap=cfg.attn_softcap, scale=cfg.attn_scale,
@@ -233,8 +277,8 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
             logits = _forward_layers(params, cfg, x, cos, sin, attend)[:, 0]
             last = sample_tokens(logits, generator, temperature, top_k, top_p, min_p)
             toks[i] = last
-        flush_staging(state.k, state.v, None, None, state.k_stage, state.v_stage,
-                      state.lengths)
+        flush_staging(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
+                      state.v_stage, state.lengths)
         state.lengths += (state.lengths > 0).to(torch.int32) * chunk
         state.last_token = last
         return toks
@@ -242,11 +286,11 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
     return chunk_fn
 
 
-def make_prefill_unrolled(cfg: LlamaConfig):
+def make_prefill_unrolled(cfg: LlamaConfig, *, w8a8: bool = False):
     """Prefill over the fused params the decode uses, so the engine holds
     one copy of the weights. Returns
     prefill(params, tokens (B, L)) -> (logits (B, L, V),
-    k (nl, B, KH, L, E), v)."""
+    k (nl, B, KH, L, E), v). w8a8: int8 products of >= 256 rows run W8A8."""
     rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
 
     @torch.no_grad()
@@ -262,13 +306,13 @@ def make_prefill_unrolled(cfg: LlamaConfig):
 
         cos, sin = rope(torch.arange(L, device=tokens.device).expand(B, L))
         logits = _forward_layers(params, cfg, _embed_tokens(params, cfg, tokens), cos, sin,
-                                 attend)
+                                 attend, w8a8)
         return logits, torch.stack(ks), torch.stack(vs)
 
     return prefill
 
 
-def make_prefill_chunk_step(cfg: LlamaConfig):
+def make_prefill_chunk_step(cfg: LlamaConfig, *, w8a8: bool = False):
     """CHUNKED prefill into a live K/V buffer: one chunk of the prompt
     whose rows start at `offset`, attending the K/V of all previous
     chunks through the offset-aware causal kernel (row i sees buffer
@@ -276,7 +320,7 @@ def make_prefill_chunk_step(cfg: LlamaConfig):
 
     step(params, tokens_c (1, C), ks_buf, vs_buf (nl, 1, KH, S, E) bf16,
          offset) -> (chunk logits (1, C, V), ks_buf, vs_buf); the buffers
-    are written in place.
+    are written in place. w8a8: int8 products of >= 256 rows run W8A8.
     """
     rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
 
@@ -298,7 +342,7 @@ def make_prefill_chunk_step(cfg: LlamaConfig):
 
         cos, sin = rope(offset + torch.arange(C, device=dev).expand(B, C))
         logits = _forward_layers(params, cfg, _embed_tokens(params, cfg, tokens_c), cos, sin,
-                                 attend)
+                                 attend, w8a8)
         return logits, ks_buf, vs_buf
 
     return step
@@ -333,12 +377,13 @@ class Request:
 
 
 def _check_params(params):
-    """The slice serves floating-point weights only."""
+    """Floating-point tensors, or QTensor / QTensor4 projections."""
     leaves = [v for k, v in params.items() if k != "layers"]
     leaves += [v for layer in params["layers"] for v in layer.values()]
     for t in leaves:
-        if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
-            raise NotImplementedError("quantized weights are not ported yet")
+        if not (isinstance(t, (QTensor, QTensor4))
+                or (isinstance(t, torch.Tensor) and t.is_floating_point())):
+            raise TypeError(f"unsupported parameter leaf {type(t).__name__}")
     if any("w_router" in layer for layer in params["layers"]):
         raise NotImplementedError("MoE layers are not ported yet")
 
@@ -348,7 +393,9 @@ class Engine:
 
     Weight-fused unrolled layers, staged KV appends, and `chunk_size`
     tokens per dispatch (one host round-trip and one staging flush per
-    chunk). The device is the one the params live on.
+    chunk). The device is the one the params live on. `quantized_kv`:
+    int8 KV caches with per-token scales; `w8a8`: W8A8 prefill products
+    for int8 weights.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, max_batch=8, max_seq=2048,
@@ -357,10 +404,10 @@ class Engine:
                  min_p: float = 0.0, seed: int = 0, chunk_size: int = 8,
                  logprobs: bool = False, paged: bool = False, prefill_chunk: int = 512,
                  prefill_chunks_per_step: int = 4, pipeline_depth: int = 2,
-                 spec_k: int = 0, prefix_cache: bool = False, max_queue: int = 256):
+                 spec_k: int = 0, prefix_cache: bool = False, max_queue: int = 256,
+                 w8a8: bool = True):
         for name, on in (("paged", paged), ("prefix_cache", prefix_cache),
-                         ("spec_k > 0", spec_k > 0), ("quantized_kv=True", quantized_kv),
-                         ("logprobs=True", logprobs)):
+                         ("spec_k > 0", spec_k > 0), ("logprobs=True", logprobs)):
             if on:
                 raise NotImplementedError(f"Engine({name}) is not ported yet")
         _check_params(params)
@@ -368,6 +415,7 @@ class Engine:
         self.tokenizer = tokenizer
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self.quantized = quantized_kv
         self.eos_id = eos_id
         self.temperature = temperature
         self.top_k = top_k
@@ -394,13 +442,13 @@ class Engine:
         # chunks can advance a finished slot (depth-1) chunks past max_seq
         # before collection zeroes it: pad the cache for both
         alloc = -(-(max_seq + STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size) // 32) * 32
-        self.state = init_state(cfg, max_batch, alloc, self.device)
+        self.state = init_state(cfg, max_batch, alloc, self.device, quantized_kv)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p)
-        self._prefill = make_prefill_unrolled(cfg)
+        self._prefill = make_prefill_unrolled(cfg, w8a8=w8a8)
         self.prefill_chunk = prefill_chunk
-        self._prefill_chunk_fn = make_prefill_chunk_step(cfg)
+        self._prefill_chunk_fn = make_prefill_chunk_step(cfg, w8a8=w8a8)
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.queue: list[Request] = []
         self._rid = 0
@@ -553,8 +601,13 @@ class Engine:
         # L are invisible (decode masks by lengths, flushes overwrite them)
         S = self.state.k.shape[3]
         W = min(ks.shape[3], S)
-        self.state.k[:, slot, :, :W] = ks[:, 0, :, :W]
-        self.state.v[:, slot, :, :W] = vs[:, 0, :, :W]
+        if self.quantized:  # per-token int8, in place
+            for cache, scales, new in ((self.state.k, self.state.k_scale, ks),
+                                       (self.state.v, self.state.v_scale, vs)):
+                cache[:, slot, :, :W], scales[:, slot, :, :W] = _quant_token(new[:, 0, :, :W])
+        else:
+            self.state.k[:, slot, :, :W] = ks[:, 0, :, :W]
+            self.state.v[:, slot, :, :W] = vs[:, 0, :, :W]
         self.state.lengths[slot] = L
         # sample the prefill token with the same settings as decode
         first = int(sample_tokens(logits, self._gen, self.temperature, self.top_k,

@@ -1,10 +1,11 @@
 """Build the CUDA kernels in `nnop_tpu_torch/csrc/` and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one `nvcc`
-call builds them in seconds; `torch.utils.cpp_extension` would take
-minutes. The library goes into `build/nnop_tpu_torch/<hash>/` at the root
-of the checkout, keyed by a hash of the sources and flags, and is built
-at first use. Each C entry point returns `cudaGetLastError()` after its
+The sources have a plain C interface (no PyTorch headers), so they build
+in seconds; `torch.utils.cpp_extension` would take minutes. Each `.cu`
+compiles to an object in its own `nvcc` process, all started together,
+and one more links them. The library goes into
+`build/nnop_tpu_torch/<hash>/` at the root of the checkout, keyed by a
+hash of the sources and flags, and is built at first use. Each C entry point returns `cudaGetLastError()` after its
 launch; the op wrappers raise when it is not 0.
 """
 
@@ -26,7 +27,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "nnop_tpu_torch")
 LIB_NAME = "libnnop_tpu_torch.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 ]
 
@@ -36,12 +37,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset, stream
     "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
-    # q, k_cache, v_cache, k_stage, v_stage, lengths, o,
-    # B, QH, KH, S, E, n_layers, layer, W, staged_n, scale, cache_is_f32, stream
-    "nnop_decode_attention": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
-    # k_stage, v_stage, k_cache, v_cache, lengths,
-    # B, n_layers, KH, S, W, E, cache_is_f32, stream
-    "nnop_flush_staging": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths, o,
+    # B, QH, KH, S, E, n_layers, layer, W, staged_n, scale, q_is_f32,
+    # cache_is_int8, stream
+    "nnop_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
+    # k_stage, v_stage, k_cache, v_cache, k_scale, v_scale, lengths,
+    # B, n_layers, KH, S, W, E, cache_kind, stream
+    "nnop_flush_staging": [_P] * 7 + [_I] * 7 + [_P],
+    # x, w, scale, out, partial, M, N, K, mode, group, pack_block, splits, stream
+    "nnop_qmm": [_P] * 5 + [_I] * 7 + [_P],
+    # xv, xs, w, ws, out, M, N, K, out_is_f32, stream
+    "nnop_qmm_w8a8": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
@@ -83,17 +89,32 @@ def build() -> BuildResult:
         return BuildResult(path, 0.0, "")
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return BuildResult(path, seconds, proc.stdout + proc.stderr)
+    return BuildResult(path, time.perf_counter() - t0, "".join(log))
 
 
 @functools.cache

@@ -8,8 +8,10 @@ on the card's machine:
 
 (NNOP_TEST_TPU=1 keeps the root conftest from importing JAX.) Tolerance:
 2e-2 absolute for bf16 outputs (one bf16 ulp below magnitude 4 is
-<= 1.6e-2, and both sides accumulate in fp32 in another order); the
-flush is a copy and must be bit-exact.
+<= 1.6e-2, and both sides accumulate in fp32 in another order), scaled
+by max(1, max|plain|) for the quantized products (bf16 sums over K in
+another order); the flush (also the int8 one) and the W8A8 product with
+f32 output must be bit-exact.
 """
 
 import pytest
@@ -19,6 +21,13 @@ from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.ops.attention_decode import decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_fwd
 from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.quantization import quantize, quantize4
+from nnop_tpu_torch.ops.quantized_matmul import (
+    quantize_act,
+    quantized_matmul,
+    quantized_matmul4,
+    quantized_matmul_w8a8,
+)
 from nnop_tpu_torch.ops.rms_norm import rms_norm
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
 
@@ -88,3 +97,67 @@ def test_flush_kernel(gen, dtype):
     naive.naive_flush_staging(kc, vc, ks, vs, lengths)
     torch.cuda.synchronize()
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def _q8_cache(gen, *shape):
+    """int8 cache values and per-token scales, as the flush makes them."""
+    return quantize(_bf(gen, *shape).float(), axis=-1)
+
+
+def test_int8_decode_kernel(gen):
+    kq, vq = _q8_cache(gen, 2, 4, 8, 256, 128), _q8_cache(gen, 2, 4, 8, 256, 128)
+    ks, vs = _bf(gen, 4, 2, 8, 32, 128), _bf(gen, 4, 2, 8, 32, 128)
+    lengths = torch.tensor([0, 1, 65, 200], dtype=torch.int32, device="cuda")
+    q = _bf(gen, 4, 32, 1, 128)
+    args = (q, kq.values, vq.values, lengths, kq.scale, vq.scale)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=7, layer=1)
+    before = decode_attention.int8_launches
+    got = decode_attention(*args, **kw)
+    assert decode_attention.int8_launches == before + 1 and (got[0] == 0).all()
+    torch.testing.assert_close(got, naive.naive_decode_attention(*args, **kw), **TOL)
+
+
+def test_int8_flush_kernel(gen):
+    kq, vq = _q8_cache(gen, 2, 4, 8, 256, 128), _q8_cache(gen, 2, 4, 8, 256, 128)
+    ks, vs = _bf(gen, 4, 2, 8, 32, 128), _bf(gen, 4, 2, 8, 32, 128)
+    lengths = torch.tensor([0, 1, 65, 224], dtype=torch.int32, device="cuda")
+    got = [t.clone() for t in (kq.values, vq.values, kq.scale, vq.scale)]
+    flush_staging(*got, ks, vs, lengths)
+    naive.naive_flush_staging(kq.values, vq.values, ks, vs, lengths, kq.scale, vq.scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, (kq.values, vq.values, kq.scale, vq.scale)):
+        assert torch.equal(g, w)
+
+
+def _close_scaled(got, want):
+    tol = 2e-2 * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (300, 1024, 640), (100, 300, 200)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn], ids=["int8", "fp8"])
+def test_quantized_matmul_kernel(gen, M, K, N, dtype):
+    x, w = _bf(gen, M, K), quantize(_bf(gen, K, N).float(), axis=0, dtype=dtype)
+    before = quantized_matmul.launches
+    got = quantized_matmul(x, w)
+    assert quantized_matmul.launches == before + 1 and got.dtype == torch.bfloat16
+    _close_scaled(got, naive.naive_quantized_matmul(x, w))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (300, 1000, 640)])
+def test_quantized_matmul4_kernel(gen, M, K, N):
+    x, w = _bf(gen, M, K), quantize4(_bf(gen, K, N).float())
+    before = quantized_matmul4.launches
+    got = quantized_matmul4(x, w)
+    assert quantized_matmul4.launches == before + 1
+    _close_scaled(got, naive.naive_quantized_matmul4(x, w))
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 4096, 1024), (100, 300, 200)])
+def test_quantized_matmul_w8a8_kernel(gen, M, K, N):
+    xv, xs = quantize_act(_bf(gen, M, K))
+    w = quantize(_bf(gen, K, N).float(), axis=0)
+    got = quantized_matmul_w8a8((xv, xs), w, out_dtype=torch.float32)
+    assert torch.equal(got, naive.naive_quantized_matmul_w8a8(xv, xs, w, torch.float32))
+    got = quantized_matmul_w8a8((xv, xs), w)
+    _close_scaled(got, naive.naive_quantized_matmul_w8a8(xv, xs, w))

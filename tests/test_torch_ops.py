@@ -158,7 +158,7 @@ def test_flush_staging_exact():
 def test_unported_features_raise_on_the_kernel_path():
     q = torch.zeros(1, 4, 1, 32)
     cache = torch.zeros(1, 2, 8, 32, dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8 cache"):  # the int8 cache needs its scales
         decode_attention(q, cache, cache, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         decode_attention(torch.zeros(1, 4, 2, 32), cache.float(), cache.float(),

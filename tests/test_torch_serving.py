@@ -142,9 +142,9 @@ def test_sample_tokens_filters():
 
 
 @pytest.mark.parametrize("option", [dict(paged=True), dict(prefix_cache=True),
-                                    dict(spec_k=2), dict(quantized_kv=True),
+                                    dict(spec_k=2), dict(paged=True, quantized_kv=True),
                                     dict(logprobs=True)],
-                         ids=["paged", "prefix_cache", "spec_k", "quantized_kv", "logprobs"])
+                         ids=["paged", "prefix_cache", "spec_k", "paged_int8_kv", "logprobs"])
 def test_unported_engine_options_raise(params, option):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Engine(params, CFG, max_batch=1, max_seq=64, **option)
@@ -152,20 +152,31 @@ def test_unported_engine_options_raise(params, option):
 
 def test_cli_generate(capsys):
     """`generate` on the tiny config on the CPU prints each request's
-    tokens; the flags of unported paths raise."""
-    main(["generate", "--model", "tiny", "--device", "cpu", "--prompt", "abc", "hi",
-          "--max-new", "5", "--batch", "2"])
-    out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("[0] [") and out[1].startswith("[1] [")
-    assert "10 tokens in" in out[2]
-    for flag in (["--wbits", "8"], ["--int8-kv"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main(["generate", "--model", "tiny", "--device", "cpu", *flag])
+    tokens, with float weights, int8 weights and the int8 KV cache, and
+    int4 weights."""
+    for flags in ([], ["--wbits", "8", "--int8-kv"], ["--wbits", "4"]):
+        main(["generate", "--model", "tiny", "--device", "cpu", "--prompt", "abc", "hi",
+              "--max-new", "5", "--batch", "2", *flags])
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith("[0] [") and out[1].startswith("[1] ["), flags
+        assert all(len(json.loads(line.split(" ", 1)[1])) == 5 for line in out[:2]), flags
+        assert "10 tokens in" in out[2], flags
+
+
+def test_cli_profile(capsys):
+    """`profile` runs decode steps with every slot live and reports the
+    step time (on the CPU: no device time)."""
+    main(["profile", "--model", "tiny", "--device", "cpu", "--wbits", "8", "--int8-kv",
+          "--batch", "2", "--prompt-len", "12", "--steps", "1"])
+    out = capsys.readouterr().out
+    assert "1 steps x 8 tokens x 2 slots" in out and "ms per step" in out
 
 
 def test_import_leaves_jax_out():
     code = (
         "import sys, nnop_tpu_torch, nnop_tpu_torch.cli, nnop_tpu_torch.models.weights, "
+        "nnop_tpu_torch.models.quantized, nnop_tpu_torch.ops.quantization, "
+        "nnop_tpu_torch.ops.quantized_matmul, "
         "nnop_tpu_torch.runtime.engine, nnop_tpu_torch.runtime.server, "
         "nnop_tpu_torch.runtime.tokenizer, nnop_tpu_torch.utils.build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'nnop_tpu', 'triton'))\n"
