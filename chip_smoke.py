@@ -10,7 +10,9 @@ non-zero:
   3. kernels: each Hopper kernel on the card at the serving paths' shapes
      (plus edge cases), held against its plain PyTorch version on the same
      inputs, both timed by CUDA events, with one PyTorch library call that
-     computes the same function timed beside it where there is one.
+     computes the same function timed beside it where there is one. The
+     paged modes of D and E run at the paged deployment's shapes (phase 7),
+     and E's one-token write beside them.
   4. bf16 path: Llama-3-8B at full width and depth (random bf16 weights
      from a seeded torch.Generator on the card) behind the port's
      EngineServer; 4 concurrent /v1/completions requests (one through
@@ -21,6 +23,13 @@ non-zero:
      same 4 requests; W8A8 prefill products, weight-only decode products,
      the int8 KV cache in decode attention and the flush.
   6. int4 path: packed int4 weights with the int8 KV cache; 2 requests.
+  7. paged path, run between 5 and 6 on phase 5's weights: the repo's
+     paged deployment (scripts/bench_engine.py --paged): int8 weights
+     with W8A8 prefill products, Engine(max_batch=32, max_seq=648,
+     chunk_size=16, quantized_kv=True, paged=True, prefix_cache=True), 32
+     concurrent requests of 512 prompt tokens, half of them repeating the
+     first 384 tokens (3 pages) of another; prefix hits, page accounting,
+     and no launch of the linear decode attention or flush.
 Each serving phase sets the launch counts to 0 just before it serves and
 reads them just after. The second-to-last line is {"kernels": [...]}, the
 last line {"ok": true, "device": {...}}.
@@ -39,6 +48,7 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 BF16_TOL = 2e-2
@@ -296,8 +306,136 @@ def phase_kernels():
         del caches, scales, args, got, want, pairs
         torch.cuda.empty_cache()
 
+    phase_paged_kernels(p3, gen, randn)
     phase_products(p3, gen, randn)
     return p3.results
+
+
+def phase_paged_kernels(p3, gen, randn):
+    """The paged modes of D and E at phase 7's shapes (pools of 256 pages
+    of 128 tokens for 32 layers, a shuffled table, lengths 512-640), an
+    edge case at page 256, the idle-slot flush, and write_kv_token."""
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
+    from nnop_tpu_torch.ops.kv_write import flush_staging_paged, write_kv_token
+
+    dev = torch.device("cuda")
+
+    def pools(NL, n_pages, page, mode):
+        shape = (NL, n_pages, 8, page, 128)
+        if mode == "bf16":
+            return (randn(*shape), randn(*shape)), ()
+        return (tuple(torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2)),
+                tuple(torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.01
+                      for _ in range(2)))
+
+    def table_for(B, n_pages, max_pages):
+        perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+        return perm[: B * max_pages].reshape(B, max_pages).contiguous()
+
+    NL, B, n_pages, page, max_pages, W = 32, 32, 256, 128, 8, 32
+    lengths = torch.randint(512, 641, (B,), generator=gen, device=dev, dtype=torch.int32)
+    len_list = lengths.tolist()
+    table = table_for(B, n_pages, max_pages)
+    k_stage, v_stage = randn(B, NL, 8, W, 128), randn(B, NL, 8, W, 128)
+    q = randn(B, 32, 1, 128)
+    for mode in ("bf16", "int8"):
+        sfx = "" if mode == "bf16" else "_int8"
+        caches, scales = pools(NL, n_pages, page, mode)
+        item = caches[0].element_size()
+
+        # D, paged: the main case, then staged_n 0 and 32
+        args = (q, *caches, table, lengths, *scales)
+        for n in (9, 0, 32):
+            dkw = dict(k_stage=k_stage, v_stage=v_stage, staged_n=n, layer=3)
+            err = max_err(paged_decode_attention(*args, **dkw),
+                          naive.naive_paged_decode_attention(*args, **dkw))
+            if n != 9:
+                p3.report(f"paged_decode_attention{sfx}", f"staged_n {n}", err, BF16_TOL,
+                          BF16_TOL_WHY)
+                continue
+            keys = sum(len_list) + B * n
+            moved = (sum(len_list) * 8 * 128 * 2 * item + B * n * 8 * 128 * 2 * 2
+                     + 2 * nbytes(q) + nbytes(lengths)
+                     + sum(-(-x // page) for x in len_list) * 4
+                     + (sum(len_list) * 8 * 2 * 4 if mode == "int8" else 0))
+            p3.report(f"paged_decode_attention{sfx}",
+                      f"q (32, 32, 1, 128), {mode} pool (32, 256, 8, 128, 128), shuffled "
+                      "table, lengths 512..640, staged_n 9, layer 3", err, BF16_TOL,
+                      BF16_TOL_WHY, device_ms(lambda: paged_decode_attention(*args, **dkw)),
+                      device_ms(lambda: naive.naive_paged_decode_attention(*args, **dkw)),
+                      bound(moved, 4 * 128 * 32 * keys, "f32"), None, True)
+
+        # D, paged edge case: page 256, ragged lengths, an empty slot
+        e_caches, e_scales = pools(2, 16, 256, mode)
+        e_len = torch.tensor([0, 45, 300, 513], dtype=torch.int32, device=dev)
+        e_table = table_for(4, 16, 4)
+        e_q, e_ks, e_vs = randn(4, 32, 1, 128), randn(4, 2, 8, 32, 128), randn(4, 2, 8, 32, 128)
+        e_args = (e_q, *e_caches, e_table, e_len, *e_scales)
+        dkw = dict(k_stage=e_ks, v_stage=e_vs, staged_n=7, layer=1)
+        o = paged_decode_attention(*e_args, **dkw)
+        check(o[0].abs().max().item() == 0.0, "paged decode: the empty slot must give zeros")
+        p3.report(f"paged_decode_attention{sfx}", "page 256, lengths 0/45/300/513",
+                  max_err(o, naive.naive_paged_decode_attention(*e_args, **dkw)), BF16_TOL,
+                  BF16_TOL_WHY)
+        del e_caches, e_scales
+
+        # E, paged: bit-exact against the plain flush at every slot's length
+        name = f"flush_staging_paged{sfx}"
+        cache_args = [*caches, *(scales or (None, None))]
+        got = [t.clone() if t is not None else None for t in cache_args]
+        flush_staging_paged(*got, k_stage, v_stage, lengths, table, page)
+        want = [t.clone() if t is not None else None for t in cache_args]
+        naive.naive_flush_staging_paged(want[0], want[1], k_stage, v_stage, lengths, table,
+                                        want[2], want[3])
+        pairs = [(g, w_) for g, w_ in zip(got, want) if g is not None]
+        check(all(torch.equal(g, w_) for g, w_ in pairs), f"{name} is not bit-exact")
+        err = max(max_err(g, w_) for g, w_ in pairs)
+
+        # the idle slot: base 0, its stale row naming slot 5's first page
+        idle_len, idle_table = lengths.clone(), table.clone()
+        idle_len[0], idle_table[0] = 0, table[5]
+        idle = [t.clone() if t is not None else None for t in cache_args]
+        flush_staging_paged(*idle, k_stage, v_stage, idle_len, idle_table, page)
+        stale = int(table[5, 0])
+        check(all(torch.equal(t[:, stale], c[:, stale]) for t, c in zip(idle, cache_args)
+                  if t is not None), f"{name}: the idle slot's flush changed a live page")
+        p3.report(name, f"idle slot with a stale row: page {stale} unchanged", 0.0, 0.0,
+                  "an unchanged page")
+        rows = B * NL * 8 * W
+        moved = (nbytes(k_stage, v_stage) + 2 * rows * 128 * item + nbytes(lengths, table)
+                 + (2 * rows * 4 if mode == "int8" else 0))
+        p3.report(name, f"(32, 32, 8, 32, 128) -> pool (32, 256, 8, 128, 128) {mode}", err,
+                  0.0, "a copy or the same IEEE quantization: bit-exact",
+                  device_ms(lambda: flush_staging_paged(*got, k_stage, v_stage, lengths, table,
+                                                        page)),
+                  device_ms(lambda: naive.naive_flush_staging_paged(
+                      want[0], want[1], k_stage, v_stage, lengths, table, want[2], want[3]), n=3),
+                  bound(moved, 0, "f32"), None, True)
+        del caches, scales, args, got, want, pairs, idle
+        torch.cuda.empty_cache()
+
+    # write_kv_token: one row per (slot, KV head) of a (32, 8, 1024, D) cache
+    pos = torch.randint(0, 1024, (B,), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.arange(B, device=dev)
+    for dtype, D in ((torch.bfloat16, 128), (torch.int8, 128), (torch.float32, 1)):
+        cache, new = (randn(*shape, scale=30.0, dtype=torch.float32).clamp(-127, 127).to(dtype)
+                      for shape in ((B, 8, 1024, D), (B, 8, 1, D)))
+        got, want = cache.clone(), cache.clone()
+        write_kv_token(got, new, pos)
+        naive.naive_write_kv_token(want, new, pos)
+        check(torch.equal(got, want), f"write_kv_token {dtype} is not bit-exact")
+        main = dtype == torch.bfloat16
+        # the library call: cache[arange(B), :, positions] = new[:, :, 0] (index_put_)
+        key, rows = (idx, slice(None), pos.long()), new[:, :, 0]
+        lib = library_ms("write_kv_token", lambda: got.__setitem__(key, rows)) if main else None
+        p3.report("write_kv_token", f"(32, 8, 1024, {D}) {dtype}", max_err(got, want), 0.0,
+                  "a copy: bit-exact", device_ms(lambda: write_kv_token(got, new, pos)),
+                  device_ms(lambda: naive.naive_write_kv_token(want, new, pos)),
+                  bound(2 * nbytes(new) + nbytes(pos), 0, "f32"), lib, main)
+        del cache, got, want
+    torch.cuda.empty_cache()
 
 
 def phase_products(p3, gen, randn):
@@ -433,32 +571,52 @@ def _cosine(a, b):
     return (a @ b / (a.norm() * b.norm())).item()
 
 
-def serve_and_check(tag, params, cfg, counters, engine_kw, n_requests=4, matmul=None):
-    """Serve 4 (or 2) concurrent requests through EngineServer on an
-    engine over `params`, check the answers, the launch counts and the
-    first-token logits against the plain forward, and return the counts."""
-    import numpy as np
+def first_logits(eng, prompt, n_match=0):
+    """The engine's own first-token logits for `prompt`: its bucketed
+    prefill, its chunked admission (longer than prefill_chunk), or with
+    n_match its prefix-hit remainder over the pages the prefix cache
+    holds for prompt[:n_match]."""
+    dev, cfg, n = eng.device, eng.cfg, len(prompt)
+    if n_match:
+        pages = eng._prefix_cache[tuple(prompt[:n_match])]
+        return eng._prefill_remainder(prompt, n_match, pages)[0][0]
+    if n <= eng.prefill_chunk:
+        bucket = max(64, 1 << (n - 1).bit_length())
+        padded = torch.tensor([prompt + [0] * (bucket - n)], device=dev)
+        return eng._prefill(eng.params, padded)[0][0, n - 1]
+    C, nl = eng.prefill_chunk, cfg.n_layers
+    sbuf = -(-n // C) * C
+    ks = torch.zeros((nl, 1, cfg.n_kv_heads, sbuf, cfg.head_dim), dtype=torch.bfloat16,
+                     device=dev)
+    vs = torch.zeros_like(ks)
+    for ci in range(sbuf // C):
+        chunk = prompt[ci * C:(ci + 1) * C]
+        chunk = torch.tensor([chunk + [0] * (C - len(chunk))], device=dev)
+        logits, ks, vs = eng._prefill_chunk_fn(eng.params, chunk, ks, vs, ci * C)
+    return logits[0, (n - 1) - (sbuf // C - 1) * C]
 
+
+def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul=None,
+                    idle=(), after=None, max_tokens=32):
+    """Serve `prompts` concurrently through EngineServer on an engine over
+    `params` built with `engine_kw`, check every answer, that each of
+    `counters` launched and each of `idle` did not, `after(eng, stats)`,
+    and the engine's first-token logits against the plain forward for
+    each (index into prompts, n_match) of `refs`. Returns the counts."""
     from nnop_tpu_torch.models.llama import forward
     from nnop_tpu_torch.runtime.engine import Engine
     from nnop_tpu_torch.runtime.server import EngineServer
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    eng = Engine(params, cfg, max_batch=8, max_seq=2048, **engine_kw)
+    eng = Engine(params, cfg, **engine_kw)
     torch.cuda.synchronize()
     print(f"{tag} setup: engine {engine_kw} in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; cache "
           f"{tuple(eng.state.k.shape)} {eng.state.k.dtype}")
+    lens = [len(p) for p in prompts]
 
-    rng = np.random.default_rng(SEED)
-    lens = (150, 280, 400, 1100)  # the 1100-token prompt admits in 3 chunks of 512
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    if n_requests == 2:
-        lens, prompts = lens[1::2], prompts[1::2]
-    max_tokens = 32
-
-    for c in counters:
+    for c in (*counters, *idle):
         c.reset()
     results = [None] * len(prompts)
     srv = EngineServer(eng, port=0).start()
@@ -478,7 +636,7 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, n_requests=4, matmul=
             stats = json.loads(r.read())
     finally:
         srv.stop()
-    launches = {c.name: c.read() for c in counters}
+    launches = {c.name: c.read() for c in (*counters, *idle)}
 
     outs = []
     for n, res in zip(lens, results):
@@ -491,50 +649,41 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, n_requests=4, matmul=
         outs.append(toks)
     check(stats["requests_completed"] >= len(prompts), f"stats: {stats}")
     check(stats["tokens_generated"] >= len(prompts) * max_tokens, f"stats: {stats}")
-    print(f"{tag} serve: {len(prompts)} concurrent requests (prompts {lens}), "
-          f"{len(prompts) * max_tokens} tokens in {wall:.2f} s wall = "
+    print(f"{tag} serve: {len(prompts)} concurrent requests (prompts of {sorted(set(lens))} "
+          f"tokens), {len(prompts) * max_tokens} tokens in {wall:.2f} s wall = "
           f"{len(prompts) * max_tokens / wall:.1f} tok/s (observation, not a claim); "
           f"stats {stats}")
     print(f"{tag} launches during serving: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the {tag} path")
+    for c in counters:
+        check(launches[c.name] > 0, f"kernel {c.name} was not launched on the {tag} path")
+    for c in idle:
+        check(launches[c.name] == 0, f"kernel {c.name} was launched on the {tag} path")
+    if after is not None:
+        after(eng, stats)
 
-    # the engine's first-token logits (its bucketed and chunked prefill,
-    # on the kernels) against the plain-op forward on the card
+    # the engine's first-token logits (its own prefill path, on the
+    # kernels) against the plain-op forward on the card
     def plain(toks):
         return forward(params, torch.tensor([toks], device=dev), cfg, plain=True,
                        matmul=matmul)[0, -1]
 
-    for n, prompt in zip(lens, prompts):
-        if n not in (280, 1100):
-            continue
-        if n <= eng.prefill_chunk:
-            padded = torch.tensor([prompt + [0] * (512 - n)], device=dev)
-            got = eng._prefill(eng.params, padded)[0][0, n - 1]
-        else:
-            C, nl = eng.prefill_chunk, cfg.n_layers
-            sbuf = -(-n // C) * C
-            ks = torch.zeros((nl, 1, cfg.n_kv_heads, sbuf, cfg.head_dim), dtype=torch.bfloat16,
-                             device=dev)
-            vs = torch.zeros_like(ks)
-            for ci in range(sbuf // C):
-                chunk = prompt[ci * C:(ci + 1) * C]
-                chunk = torch.tensor([chunk + [0] * (C - len(chunk))], device=dev)
-                logits, ks, vs = eng._prefill_chunk_fn(eng.params, chunk, ks, vs, ci * C)
-            got = logits[0, (n - 1) - (sbuf // C - 1) * C]
-        want = plain(prompt)
+    for i, n_match in refs:
+        got, want = first_logits(eng, prompts[i], n_match), plain(prompts[i])
         cos = _cosine(got, want)
-        print(f"{tag} reference: prompt {n}: first-token logits cosine {cos:.6f} "
-              f"(>= 0.99 required), argmax engine {int(got.argmax())} plain {int(want.argmax())}")
-        check(cos >= 0.99, f"{tag} prompt {n}: cosine {cos}")
+        how = f"prefix hit of {n_match} tokens" if n_match else "no prefix hit"
+        print(f"{tag} reference: prompt {i} ({lens[i]} tokens, {how}): first-token logits "
+              f"cosine {cos:.6f} (>= 0.99 required), argmax engine {int(got.argmax())} "
+              f"plain {int(want.argmax())}")
+        check(cos >= 0.99, f"{tag} prompt {i}: cosine {cos}")
         check(bool(torch.isfinite(got).all()), "non-finite logits")
 
-    toks, greedy = list(prompts[1 if n_requests == 4 else 0]), []
+    first = refs[0][0]
+    toks, greedy = list(prompts[first]), []
     for _ in range(8):
         nxt = int(plain(toks).argmax())
         greedy.append(nxt)
         toks.append(nxt)
-    agree = sum(a == b for a, b in zip(outs[1 if n_requests == 4 else 0][:8], greedy))
+    agree = sum(a == b for a, b in zip(outs[first][:8], greedy))
     print(f"{tag} greedy agreement with the plain forward over the first 8 tokens: "
           f"{agree}/8 (information only)")
     del eng
@@ -542,17 +691,38 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, n_requests=4, matmul=
 
 
 class Counter:
-    """One launch count of a kernel wrapper (`launches`, or a mode's own
-    count such as `int8_launches`), under its entry name."""
+    """One launch count of a kernel wrapper under its entry name:
+    `launches`, a mode's own count such as `int8_launches`, or with
+    `minus`, `launches` less that mode's (the other mode's launches)."""
 
-    def __init__(self, name, fn, attr="launches"):
-        self.name, self.fn, self.attr = name, fn, attr
+    def __init__(self, name, fn, attr="launches", minus=None):
+        self.name, self.fn, self.attr, self.minus = name, fn, attr, minus
 
     def reset(self):
-        setattr(self.fn, self.attr, 0)
+        for attr in (self.attr, self.minus):
+            if attr is not None:
+                setattr(self.fn, attr, 0)
 
     def read(self):
-        return getattr(self.fn, self.attr)
+        return getattr(self.fn, self.attr) - (getattr(self.fn, self.minus) if self.minus else 0)
+
+
+def check_pages(eng, stats):
+    """Phase 7: the prefix cache served 16 x 384 tokens, and after the
+    drain every page it does not hold is free, each held page once."""
+    hits = 16 * 384
+    check(eng.prefix_hits == hits and stats["prefix_hit_tokens"] == hits,
+          f"prefix hits {eng.prefix_hits} (stats {stats['prefix_hit_tokens']}), expected {hits}")
+    held = [p for pages in eng._prefix_cache.values() for p in pages]
+    free = eng._free_pages
+    check(len(set(held)) == len(held) == 16 * 3, f"{len(held)} cached pages, expected 48")
+    check(len(set(free)) == len(free) and not set(free) & set(held)
+          and len(free) + len(held) == eng.n_pages,
+          f"{len(free)} free + {len(held)} cached pages of {eng.n_pages}")
+    check(all(eng._page_refs[p] == 1 for p in held), "a cached page has a refcount other than 1")
+    check(all(not pages for pages in eng._slot_pages), "a slot still holds pages")
+    print(f"phase 7 pages: {hits} prefix-hit tokens; {len(held)} pages held by the prefix "
+          f"cache (refcount 1 each), {len(free)} free, of {eng.n_pages}")
 
 
 def main():
@@ -566,8 +736,9 @@ def main():
     from nnop_tpu_torch.models.llama import LlamaConfig, init_params, init_quantized_params
     from nnop_tpu_torch.models.quantized import qmatmul
     from nnop_tpu_torch.ops.attention_decode import decode_attention
+    from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
-    from nnop_tpu_torch.ops.kv_write import flush_staging
+    from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
     from nnop_tpu_torch.ops.quantized_matmul import (
         quantized_matmul,
         quantized_matmul4,
@@ -578,7 +749,9 @@ def main():
 
     decode_src, flush_src = "nnop_tpu_torch/csrc/decode_attn.cu", "nnop_tpu_torch/csrc/kv_flush.cu"
     qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
-    # entry name -> (counter, route, source, the TPU kernel it replaces)
+    paged_rep, flush_rep = "nnop_tpu/ops/attention_decode_paged.py:430", "nnop_tpu/ops/kv_write.py"
+    # entry name -> (counter, route, source, the TPU kernel it replaces);
+    # a bf16 entry of a kernel with an int8 mode counts the bf16 launches
     entries = {
         "rms_norm": (Counter("rms_norm", rms_norm), "triton", "nnop_tpu_torch/ops/rms_norm.py",
                      "nnop_tpu/ops/rms_norm.py:120"),
@@ -586,21 +759,34 @@ def main():
                        "nnop_tpu/ops/rope.py:102"),
         "flash_fwd": (Counter("flash_fwd", flash_fwd), "cuda", "nnop_tpu_torch/csrc/flash_fwd.cu",
                       "nnop_tpu/ops/flash_attention.py:1309"),
-        "decode_attention": (Counter("decode_attention", decode_attention), "cuda", decode_src,
-                             "nnop_tpu/ops/attention_decode.py:753"),
-        "flush_staging": (Counter("flush_staging", flush_staging), "cuda", flush_src,
-                          "nnop_tpu/ops/kv_write.py:266"),
+        "decode_attention": (Counter("decode_attention", decode_attention, minus="int8_launches"),
+                             "cuda", decode_src, "nnop_tpu/ops/attention_decode.py:753"),
+        "flush_staging": (Counter("flush_staging", flush_staging, minus="int8_launches"), "cuda",
+                          flush_src, f"{flush_rep}:266"),
         "decode_attention_int8": (Counter("decode_attention_int8", decode_attention,
                                           "int8_launches"), "cuda", decode_src,
                                   "nnop_tpu/ops/attention_decode.py:753"),
         "flush_staging_int8": (Counter("flush_staging_int8", flush_staging, "int8_launches"),
-                               "cuda", flush_src, "nnop_tpu/ops/kv_write.py:266"),
+                               "cuda", flush_src, f"{flush_rep}:266"),
         "quantized_matmul": (Counter("quantized_matmul", quantized_matmul), "cuda", qmm_src,
                              f"{qmm_rep}:108"),
         "quantized_matmul_w8a8": (Counter("quantized_matmul_w8a8", quantized_matmul_w8a8),
                                   "cuda", qmm_src, f"{qmm_rep}:256"),
         "quantized_matmul4": (Counter("quantized_matmul4", quantized_matmul4), "cuda", qmm_src,
                               f"{qmm_rep}:383"),
+        "paged_decode_attention": (Counter("paged_decode_attention", paged_decode_attention,
+                                           minus="int8_launches"), "cuda", decode_src, paged_rep),
+        "paged_decode_attention_int8": (Counter("paged_decode_attention_int8",
+                                                paged_decode_attention, "int8_launches"), "cuda",
+                                        decode_src, paged_rep),
+        "flush_staging_paged": (Counter("flush_staging_paged", flush_staging_paged,
+                                        minus="int8_launches"), "cuda", flush_src,
+                                f"{flush_rep}:529"),
+        "flush_staging_paged_int8": (Counter("flush_staging_paged_int8", flush_staging_paged,
+                                             "int8_launches"), "cuda", flush_src,
+                                     f"{flush_rep}:529"),
+        "write_kv_token": (Counter("write_kv_token", write_kv_token), "cuda", flush_src,
+                           f"{flush_rep}:85"),
     }
     phase_device()
     phase_build()
@@ -614,12 +800,19 @@ def main():
     def counters(*names):
         return [entries[n][0] for n in names]
 
+    # phases 4-6: 4 (or 2) prompts, one through chunked admission (1100
+    # tokens: 3 chunks of 512), on Engine(max_batch=8, max_seq=2048)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (150, 280, 400, 1100)]
+    linear = dict(max_batch=8, max_seq=2048)
+
     # 4. bf16 weights, bf16 cache
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     params = init_params(gen, cfg)
     launches.update(serve_and_check("phase 4", params, cfg, counters(
-        "rms_norm", "llama_rope", "flash_fwd", "decode_attention", "flush_staging"), {}))
+        "rms_norm", "llama_rope", "flash_fwd", "decode_attention", "flush_staging"), linear,
+        prompts, [(1, 0), (3, 0)]))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -635,18 +828,37 @@ def main():
     counts = serve_and_check("phase 5", params, cfg, counters(
         "rms_norm", "llama_rope", "flash_fwd", "decode_attention_int8", "flush_staging_int8",
         "quantized_matmul", "quantized_matmul_w8a8"),
-        dict(quantized_kv=True, w8a8=True), matmul=w8a8_plain)
+        dict(linear, quantized_kv=True, w8a8=True), prompts, [(1, 0), (3, 0)],
+        matmul=w8a8_plain)
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+
+    # 7. the paged deployment (scripts/bench_engine.py --paged) on the same
+    #    int8 weights: 32 requests of 512 tokens; requests 16-31 repeat the
+    #    first 384 tokens (3 pages of 128) of requests 0-15
+    fresh = [rng.integers(0, cfg.vocab_size, 512).tolist() for _ in range(16)]
+    paged_prompts = fresh + [p[:384] + rng.integers(0, cfg.vocab_size, 128).tolist()
+                             for p in fresh]
+    paged_kw = dict(max_batch=32, max_seq=648, chunk_size=16, quantized_kv=True, paged=True,
+                    prefix_cache=True)
+    counts = serve_and_check("phase 7", params, cfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd", "paged_decode_attention_int8",
+        "flush_staging_paged_int8", "quantized_matmul", "quantized_matmul_w8a8"), paged_kw,
+        paged_prompts, [(0, 0), (16, 384)], matmul=w8a8_plain,
+        idle=counters("decode_attention", "decode_attention_int8", "flush_staging",
+                      "flush_staging_int8", "paged_decode_attention", "flush_staging_paged",
+                      "write_kv_token"),
+        after=check_pages)
     launches.update({k: v for k, v in counts.items() if k not in launches})
     del params, head
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. int4 weights, int8 cache
+    # 6. int4 weights, int8 cache: the 280- and 1100-token prompts
     gen.manual_seed(SEED)
     params = init_quantized_params(gen, cfg, wbits=4)
     counts = serve_and_check("phase 6", params, cfg, counters(
         "rms_norm", "llama_rope", "flash_fwd", "decode_attention_int8", "flush_staging_int8",
-        "quantized_matmul4"), dict(quantized_kv=True), n_requests=2,
+        "quantized_matmul4"), dict(linear, quantized_kv=True), prompts[1::2], [(0, 0), (1, 0)],
         matmul=functools.partial(qmatmul, plain=True))
     launches.update({k: v for k, v in counts.items() if k not in launches})
     del params

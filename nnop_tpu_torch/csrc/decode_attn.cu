@@ -1,9 +1,11 @@
 // Decode attention for Hopper (sm_90a): one query token per sequence over
-// the stacked KV cache plus the bf16 staging buffer.
+// the stacked KV cache, or a page pool through a page table, plus the bf16
+// staging buffer.
 //
 // Replaces nnop_tpu/ops/attention_decode.py:decode_attention (_decode_kernel
-// with _decode_step_b / _decode_step_b_flat / _staging_step_b) for a
-// floating-point or int8 cache and T = 1.
+// with _decode_step_b / _decode_step_b_flat / _staging_step_b) and
+// nnop_tpu/ops/attention_decode_paged.py:paged_decode_attention
+// (_paged_kernel) for a floating-point or int8 cache and T = 1.
 //
 // Bound on the H100: device-memory bandwidth. Each step reads every live
 // cache row of the layer once (lengths[b] * E * 2 values per KV head)
@@ -32,6 +34,15 @@
 // the softmax max and sum are taken before the V scale, which is folded
 // into P; P * v_scale is rounded to bf16 for the PV product (int8 values
 // are exact in bf16).
+//
+// Paged mode (attention_decode_paged.py:39-282): the cache is a pool
+// (n_layers, n_pages, KH, page, E) and key c of slot b sits in row
+// c % page of page table[b][c / page]. With page % 32 == 0 a 32-key tile
+// never crosses a page, so the mode changes only where a tile's rows and
+// scales start (`tile_row`); the table entry of a page is read only for
+// pages below ceil(len / page), as the TPU kernel clamps the rest. The
+// TPU kernel steps its online softmax once per page and the linear mode
+// here once per tile; both round P at their own steps.
 
 #include <type_traits>
 
@@ -80,14 +91,14 @@ __device__ __forceinline__ void load_tile(const KV* __restrict__ src, int n, flo
 
 // Online-softmax update with the n (<= kTile) live keys at kt / vt (rows
 // of kE). PT is the type P is rounded to for the PV product. ksc / vsc:
-// the keys' int8 scales, or null for a floating-point tile.
+// the keys' scales of an int8 tile (unread for a floating-point one).
 template <typename KV, typename PT>
 __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV* __restrict__ vt,
                                             const float* __restrict__ ksc,
                                             const float* __restrict__ vsc, int n, int G,
                                             float scale, DecodeSmem& sm, float* acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool q8 = ksc != nullptr;
+  constexpr bool q8 = std::is_same<KV, int8_t>::value;
   load_tile(kt, n, sm.k);
   load_tile(vt, n, sm.v);
   if (q8 && threadIdx.x < n) {
@@ -138,17 +149,33 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
   __syncthreads();  // the next tile overwrites sm.k, sm.v and sm.p
 }
 
-// Grid (KH, B). Caches (n_layers, B, KH, S, kE) of KV (T, or int8 with
-// scales (n_layers, B, KH, S) f32); staging (B, n_layers, KH, W, kE) bf16
-// or null; q, o (B, QH, kE) of T.
-template <typename T, typename KV>
+// The first cache row (in units of kE values) of the tile starting at key
+// c0 of slot b. A linear cache has n_blocks = B blocks of S keys per
+// layer, and slot b's rows start at `base` (its block's first row); a
+// pool has n_blocks = n_pages pages of S = page keys, found through the
+// slot's row of the page table.
+template <bool kPaged>
+__device__ __forceinline__ size_t tile_row(size_t base, int layer, int n_blocks, int kh, int KH,
+                                           int S, const int* __restrict__ slot_table, int c0) {
+  if constexpr (kPaged)
+    return (((size_t)layer * n_blocks + slot_table[c0 / S]) * KH + kh) * (size_t)S + c0 % S;
+  else
+    return base + c0;
+}
+
+// Grid (KH, B). Caches (n_layers, n_blocks, KH, S, kE) of KV (T, or int8
+// with scales (n_layers, n_blocks, KH, S) f32): n_blocks = B linear, or
+// n_pages paged with S = page and table (B, max_pages); staging
+// (B, n_layers, KH, W, kE) bf16 or null; q, o (B, QH, kE) of T.
+template <typename T, typename KV, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
               const KV* __restrict__ v_cache, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ k_stage,
               const __nv_bfloat16* __restrict__ v_stage, const int* __restrict__ lengths,
-              T* __restrict__ o, int B, int QH, int KH, int S, int n_layers, int layer, int W,
-              int staged_n, float scale) {
+              const int* __restrict__ table, T* __restrict__ o, int B, int QH, int KH, int S,
+              int n_blocks, int max_pages, int n_layers, int layer, int W, int staged_n,
+              float scale) {
   constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
   using PT = typename std::conditional<kQ8, __nv_bfloat16, KV>::type;
   __shared__ DecodeSmem sm;
@@ -168,14 +195,13 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
   for (int gq = 0; gq < kMaxG; ++gq) acc[gq] = 0.f;
   __syncthreads();
 
-  const size_t row_off = (((size_t)layer * B + b) * KH + kh) * (size_t)S;
-  const size_t cache_off = row_off * kE;
+  const size_t base = (((size_t)layer * n_blocks + b) * KH + kh) * (size_t)S;
+  const int* slot_table = kPaged ? table + (size_t)b * max_pages : nullptr;
   for (int c0 = 0; c0 < len; c0 += kTile) {
-    attend_tile<KV, PT>(k_cache + cache_off + (size_t)c0 * kE,
-                        v_cache + cache_off + (size_t)c0 * kE,
-                        kQ8 ? k_scale + row_off + c0 : nullptr,
-                        kQ8 ? v_scale + row_off + c0 : nullptr, min(kTile, len - c0), G, scale,
-                        sm, acc);
+    const size_t row = tile_row<kPaged>(base, layer, n_blocks, kh, KH, S, slot_table, c0);
+    attend_tile<KV, PT>(k_cache + row * kE, v_cache + row * kE,
+                        kQ8 ? k_scale + row : nullptr, kQ8 ? v_scale + row : nullptr,
+                        min(kTile, len - c0), G, scale, sm, acc);
   }
   if (k_stage != nullptr && len > 0 && staged_n > 0) {
     // the staging part runs with q rounded to bf16 (every cache tile is done)
@@ -196,51 +222,68 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
   }
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool kPaged>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
                    const void* v_scale, const void* k_stage, const void* v_stage,
-                   const void* lengths, void* o, int B, int QH, int KH, int S, int n_layers,
-                   int layer, int W, int staged_n, float scale, cudaStream_t st) {
-  decode_kernel<T, KV><<<dim3(KH, B), kThreads, 0, st>>>(
+                   const void* lengths, const void* table, void* o, int B, int QH, int KH, int S,
+                   int n_blocks, int max_pages, int n_layers, int layer, int W, int staged_n,
+                   float scale, cudaStream_t st) {
+  decode_kernel<T, KV, kPaged><<<dim3(KH, B), kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_cache), static_cast<const KV*>(v_cache),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(k_stage), static_cast<const __nv_bfloat16*>(v_stage),
-      static_cast<const int*>(lengths), static_cast<T*>(o), B, QH, KH, S, n_layers, layer, W,
-      staged_n, scale);
+      static_cast<const int*>(lengths), static_cast<const int*>(table), static_cast<T*>(o), B,
+      QH, KH, S, n_blocks, max_pages, n_layers, layer, W, staged_n, scale);
   return cudaGetLastError();
+}
+
+template <bool kPaged>
+int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+             const void* v_scale, const void* k_stage, const void* v_stage, const void* lengths,
+             const void* table, void* o, int B, int QH, int KH, int S, int E, int n_blocks,
+             int max_pages, int n_layers, int layer, int W, int staged_n, float scale,
+             int q_is_f32, int cache_is_int8, void* stream) {
+  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W ||
+      (cache_is_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      (kPaged ? S % kTile != 0 : n_blocks != B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!cache_is_int8) k_scale = v_scale = nullptr;
+#define NNOP_DECODE_LAUNCH(T, KV)                                                            \
+  launch<T, KV, kPaged>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths, table, \
+                        o, B, QH, KH, S, n_blocks, max_pages, n_layers, layer, W, staged_n,      \
+                        scale, st)
+  cudaError_t e;
+  if (cache_is_int8)
+    e = q_is_f32 ? NNOP_DECODE_LAUNCH(float, int8_t) : NNOP_DECODE_LAUNCH(__nv_bfloat16, int8_t);
+  else
+    e = q_is_f32 ? NNOP_DECODE_LAUNCH(float, float)
+                 : NNOP_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#undef NNOP_DECODE_LAUNCH
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 // q (B, QH, 1, E) and o bf16, or f32 when q_is_f32; caches stacked
-// (n_layers, B, KH, S, E) of q's dtype, or int8 when cache_is_int8 with
-// scales (n_layers, B, KH, S) f32; staging (B, n_layers, KH, W, E) bf16 or
-// null; lengths (B,) int32. E must be 128, QH / KH <= 8 and W <= 32.
+// (n_layers, n_blocks, KH, S, E) of q's dtype, or int8 when cache_is_int8
+// with scales (n_layers, n_blocks, KH, S) f32; staging (B, n_layers, KH,
+// W, E) bf16 or null; lengths (B,) int32. Linear when page_table is null
+// (n_blocks = B); else pools of n_blocks pages of S keys (S a multiple of
+// 32) and page_table (B, max_pages) int32. E must be 128, QH / KH <= 8
+// and W <= 32.
 extern "C" int nnop_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* k_scale, const void* v_scale,
                                      const void* k_stage, const void* v_stage,
-                                     const void* lengths, void* o, int B, int QH, int KH, int S,
-                                     int E, int n_layers, int layer, int W, int staged_n,
-                                     float scale, int q_is_f32, int cache_is_int8, void* stream) {
-  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W ||
-      (cache_is_int8 && (k_scale == nullptr || v_scale == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (cache_is_int8)
-    e = q_is_f32 ? launch<float, int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage,
-                                         lengths, o, B, QH, KH, S, n_layers, layer, W, staged_n,
-                                         scale, st)
-                 : launch<__nv_bfloat16, int8_t>(q, k_cache, v_cache, k_scale, v_scale, k_stage,
-                                                 v_stage, lengths, o, B, QH, KH, S, n_layers,
-                                                 layer, W, staged_n, scale, st);
-  else
-    e = q_is_f32 ? launch<float, float>(q, k_cache, v_cache, nullptr, nullptr, k_stage, v_stage,
-                                        lengths, o, B, QH, KH, S, n_layers, layer, W, staged_n,
-                                        scale, st)
-                 : launch<__nv_bfloat16, __nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr,
-                                                        k_stage, v_stage, lengths, o, B, QH, KH,
-                                                        S, n_layers, layer, W, staged_n, scale,
-                                                        st);
-  return static_cast<int>(e);
+                                     const void* lengths, const void* page_table, void* o, int B,
+                                     int QH, int KH, int S, int E, int n_blocks, int max_pages,
+                                     int n_layers, int layer, int W, int staged_n, float scale,
+                                     int q_is_f32, int cache_is_int8, void* stream) {
+  return page_table != nullptr
+             ? dispatch<true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
+                              page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers,
+                              layer, W, staged_n, scale, q_is_f32, cache_is_int8, stream)
+             : dispatch<false>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
+                               nullptr, o, B, QH, KH, S, E, n_blocks, 0, n_layers, layer, W,
+                               staged_n, scale, q_is_f32, cache_is_int8, stream);
 }

@@ -4,7 +4,8 @@
 nnop_tpu/ops/attention_decode.py:decode_attention (`_decode_kernel`) for
 a floating-point or int8 cache and one query token per sequence. See the
 kernel source for what bounds it and how. The int8 mode has its own
-launch count, `decode_attention.int8_launches`, beside `launches`.
+launch count, `decode_attention.int8_launches`, beside `launches`. The
+same kernel body serves a paged pool (ops/attention_decode_paged.py).
 
 Multi-token speculative verify (T > 1) and, on CUDA, the sliding window
 and softcap are not ported yet and raise NotImplementedError.
@@ -20,6 +21,7 @@ from nnop_tpu_torch.utils.platform import check_cuda_operand
 
 MAX_STAGE_W = 32  # staging rows the kernel attends in one tile
 MAX_GROUP = 8  # query heads per KV head the kernel holds
+TILE = 32  # keys per kernel tile: a page must hold whole tiles
 
 
 @torch.no_grad()
@@ -55,37 +57,60 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
             v_stage=v_stage, staged_n=staged_n, layer=layer, window=window,
             softcap=softcap,
         )
-    for name, val in (("window", window), ("softcap", softcap)):
+    o = launch_decode("decode_attention", q, k_cache, v_cache, lengths, k_scale, v_scale, None,
+                      scale=scale, k_stage=k_stage, v_stage=v_stage, staged_n=staged_n,
+                      layer=layer, window=window, softcap=softcap)
+    decode_attention.launches += 1
+    if quantized:
+        decode_attention.int8_launches += 1
+    return o
+
+
+def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_table, *, scale,
+                  k_stage, v_stage, staged_n, layer, window, softcap):
+    """Check the operands of kernel D and launch it on CUDA tensors: over
+    a linear cache (page_table None), or over page pools (n_pages, KH,
+    page, E) through page_table (B, max_pages) int32. `name` is the
+    calling op's, for its errors. Returns o (B, QH, 1, E)."""
+    quantized = k_scale is not None
+    B, QH, _, E = q.shape
+    for opt, val in (("window", window), ("softcap", softcap)):
         if val is not None:
-            raise NotImplementedError(
-                f"decode_attention: {name} is not ported to the CUDA kernel yet")
+            raise NotImplementedError(f"{name}: {opt} is not ported to the CUDA kernel yet")
     if layer is None:  # view a plain cache as a one-layer stack
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
         if quantized:
             k_scale, v_scale = k_scale[None], v_scale[None]
         if k_stage is not None:
             k_stage, v_stage = k_stage[:, None], v_stage[:, None]
-    n_layers, _, KH, S, _ = k_cache.shape
-    if k_cache.shape[1] != B or k_cache.shape[4] != E or v_cache.shape != k_cache.shape:
-        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
+    n_layers, n_blocks, KH, S, _ = k_cache.shape
+    paged = page_table is not None
+    if ((not paged and n_blocks != B) or k_cache.shape[4] != E
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"{name}: cache shape {tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range for {n_layers} layers")
-    if E != 128 or QH % KH or QH // KH > MAX_GROUP:
-        raise ValueError(f"kernel needs head dim 128 and QH/KH <= {MAX_GROUP}; "
-                         f"got E={E}, QH={QH}, KH={KH}")
+    if E != 128 or QH % KH or QH // KH > MAX_GROUP or (paged and S % TILE):
+        raise ValueError(f"kernel needs head dim 128, QH/KH <= {MAX_GROUP} and pages of whole "
+                         f"{TILE}-key tiles; got E={E}, QH={QH}, KH={KH}, page={S}")
     check_cuda_operand("q", q, (torch.bfloat16, torch.float32))
     cache_dtype = torch.int8 if quantized else q.dtype
     check_cuda_operand("k_cache", k_cache, (cache_dtype,), device=q.device)
     check_cuda_operand("v_cache", v_cache, (cache_dtype,), device=q.device)
     if quantized:
-        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            check_cuda_operand(name, t, (torch.float32,), device=q.device)
+        for what, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_cuda_operand(what, t, (torch.float32,), device=q.device)
             if t.shape != k_cache.shape[:4]:
-                raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
+                raise ValueError(f"{what} shape {tuple(t.shape)}, expected "
                                  f"{tuple(k_cache.shape[:4])}")
     check_cuda_operand("lengths", lengths, (torch.int32,), device=q.device)
     if lengths.shape != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)}, expected ({B},)")
+    if paged:
+        check_cuda_operand("page_table", page_table, (torch.int32,), device=q.device)
+        if page_table.ndim != 2 or page_table.shape[0] != B:
+            raise ValueError(f"page_table shape {tuple(page_table.shape)}, expected ({B}, *)")
     W = 0
     if k_stage is not None:
         W = k_stage.shape[3]
@@ -101,14 +126,12 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         k_stage.data_ptr() if k_stage is not None else None,
         v_stage.data_ptr() if v_stage is not None else None,
-        lengths.data_ptr(), o.data_ptr(), B, QH, KH, S, E, n_layers, int(layer),
-        W, staged_n, float(scale), int(q.dtype == torch.float32), int(quantized),
+        lengths.data_ptr(), page_table.data_ptr() if paged else None, o.data_ptr(), B, QH, KH,
+        S, E, n_blocks, page_table.shape[1] if paged else 0, n_layers, int(layer), W, staged_n,
+        float(scale), int(q.dtype == torch.float32), int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch("decode_attention", err)
-    decode_attention.launches += 1
-    if quantized:
-        decode_attention.int8_launches += 1
+    check_launch(name, err)
     return o
 
 

@@ -1,0 +1,65 @@
+"""Decode attention over a paged KV pool: the paged mode of the CUDA kernel.
+
+`paged_decode_attention` wraps csrc/decode_attn.cu's paged mode, which
+replaces nnop_tpu/ops/attention_decode_paged.py:paged_decode_attention
+(`_paged_kernel`) for a floating-point or int8 pool and one query token
+per sequence. It is the decode kernel of ops/attention_decode.py with
+each 32-key tile's rows found through the slot's page table; see the
+kernel source for what bounds it. The int8 mode has its own launch
+count, `paged_decode_attention.int8_launches`, beside `launches`.
+
+On CUDA, the sliding window and softcap are not ported yet and raise
+NotImplementedError (the plain version has them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nnop_tpu_torch.ops.attention_decode import launch_decode
+from nnop_tpu_torch.ops.naive import naive_paged_decode_attention
+
+
+@torch.no_grad()
+def paged_decode_attention(q, pool_k, pool_v, page_table, lengths, pool_k_scale=None,
+                           pool_v_scale=None, *, scale: float | None = None, k_stage=None,
+                           v_stage=None, staged_n: int | None = None, layer: int | None = None,
+                           window: int | None = None, softcap: float | None = None):
+    """Single-token decode over a paged KV pool.
+
+    q: (B, QH, 1, E). pool_k/pool_v: (n_pages, KH, page, E), or STACKED
+    (n_layers, n_pages, KH, page, E) with the static `layer` index; fp, or
+    int8 with per-token f32 scales pool_k_scale/pool_v_scale of the pool's
+    shape without E. page_table: (B, max_pages) int32, each slot's page
+    ids in order; entries at or past ceil(lengths[b] / page) are never
+    read. lengths: (B,) int32 tokens in the POOL (staged ones counted
+    apart). k_stage/v_stage/staged_n: the bf16 staging of the newest
+    tokens, as in ops/attention_decode.py. A slot with lengths[b] == 0
+    gets zeros. Returns (B, QH, 1, E) in q.dtype.
+    """
+    quantized = pool_k.dtype == torch.int8
+    if quantized != (pool_k_scale is not None) or (pool_k_scale is None) != (pool_v_scale is None):
+        raise ValueError("pool scales come with an int8 pool, and only with one")
+    B, QH, T, E = q.shape
+    if T != 1:
+        raise NotImplementedError("paged_decode_attention: multi-token verify is not ported yet")
+    if scale is None:
+        scale = 1.0 / (E**0.5)
+    staged_n = int(staged_n or 0) if k_stage is not None else 0
+    if q.device.type == "cpu":
+        return naive_paged_decode_attention(
+            q, pool_k, pool_v, page_table, lengths, pool_k_scale, pool_v_scale, scale=scale,
+            k_stage=k_stage, v_stage=v_stage, staged_n=staged_n, layer=layer, window=window,
+            softcap=softcap,
+        )
+    o = launch_decode("paged_decode_attention", q, pool_k, pool_v, lengths, pool_k_scale,
+                      pool_v_scale, page_table, scale=scale, k_stage=k_stage, v_stage=v_stage,
+                      staged_n=staged_n, layer=layer, window=window, softcap=softcap)
+    paged_decode_attention.launches += 1
+    if quantized:
+        paged_decode_attention.int8_launches += 1
+    return o
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

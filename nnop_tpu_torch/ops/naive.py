@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ops: the CPU path and the kernels' oracles.
 
 Counterpart of nnop_tpu/ops/naive.py, plus the plain decode attention
-over a stacked cache with staging, the plain staging flush and the plain
+over a stacked cache or a page pool with staging, the plain staging
+flushes (linear and paged), the one-token cache write and the plain
 quantized products (nnop_tpu/ops/quantized_matmul.py). Each op
 module's wrapper runs these for a CPU tensor; `chip_smoke.py` and the
 card tests hold each kernel against them on the same inputs.
@@ -10,6 +11,7 @@ Layouts are the JAX package's:
   q: (B, QH, QL, E)   k, v: (B, KH, KL, E)   pair: (B, QH, QL, KL)
   kpad_mask: (B, KL) bool, True = valid key position
   stacked cache: (n_layers, B, KH, S, E)   staging: (B, n_layers, KH, W, E)
+  stacked page pool: (n_layers, n_pages, KH, page, E)   page table: (B, max_pages)
 
 Masking follows the kernels (MASK_VALUE, not -inf; masked probabilities
 are exact zeros; a row with no visible key gives zeros, not NaN or the
@@ -134,85 +136,151 @@ def naive_decode_attention(
     window: int | None = None,
     softcap: float | None = None,
 ):
-    """One query token per sequence over a floating-point cache plus the
-    bf16 staging buffer (nnop_tpu/ops/attention_decode.py semantics).
+    """One query token per sequence over a floating-point or int8 cache
+    plus the bf16 staging buffer (nnop_tpu/ops/attention_decode.py
+    semantics).
 
     q: (B, QH, 1, E). Caches (B, KH, S, E), or stacked
     (n_layers, B, KH, S, E) with `layer`. lengths (B,) counts FLUSHED
     tokens: cache rows < lengths[b] are live. Staging (B, KH, W, E) (or
     (B, n_layers, KH, W, E) with `layer`) holds the `staged_n` newest
     tokens, at positions lengths[b] + j; it is masked for a slot with
-    lengths[b] == 0. The staging part runs with q and P rounded to bf16;
-    the cache part rounds P to the cache dtype. Returns (B, QH, 1, E).
+    lengths[b] == 0. Returns (B, QH, 1, E).
 
-    The two parts run in the kernels' order, as two online-softmax steps:
-    the cache part's P is rounded against the cache part's own maximum,
-    and the staging step rescales its sum. (Rounding P against the joint
-    maximum instead would differ from the TPU kernel by up to a bf16 ulp of
-    P wherever the staging part raises the maximum.)
+    A linear cache is a pool whose page is a slot's whole row, so this is
+    naive_paged_decode_attention with slot b's one page b: the cache part
+    and the staging part run as two online-softmax steps, as the TPU
+    kernel runs them. The cache part's P is rounded against the cache
+    part's own maximum (rounding against the joint maximum instead would
+    differ from the TPU kernel by up to a bf16 ulp of P wherever the
+    staging part raises the maximum). An int8 cache follows the engine's
+    TPU path (attention_decode.py:_decode_step_b_flat), as the paged
+    version describes.
+    """
+    table = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
+    return naive_paged_decode_attention(
+        q, k_cache, v_cache, table, lengths, k_scale, v_scale, scale=scale, k_stage=k_stage,
+        v_stage=v_stage, staged_n=staged_n, layer=layer, window=window, softcap=softcap)
 
-    An int8 cache comes with per-token f32 scales k_scale/v_scale of the
-    cache's shape without E, and follows the engine's TPU path
-    (attention_decode.py:_decode_step_b_flat): q rounded to bf16, the K
-    scale on the score columns after the softmax scale, the softmax sum
-    taken before the V scale, the V scale folded into P, and P rounded
-    to bf16 for the PV product.
+
+def naive_paged_decode_attention(
+    q,
+    pool_k,
+    pool_v,
+    page_table,
+    lengths,
+    k_scale=None,
+    v_scale=None,
+    *,
+    scale: float | None = None,
+    k_stage=None,
+    v_stage=None,
+    staged_n: int = 0,
+    layer: int | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
+):
+    """One query token per sequence over a page pool plus the bf16
+    staging buffer (nnop_tpu/ops/attention_decode_paged.py semantics).
+
+    q: (B, QH, 1, E). Pools (n_pages, KH, page, E), or stacked
+    (n_layers, n_pages, KH, page, E) with `layer`; page_table (B,
+    max_pages) holds each slot's page ids in order, and only the entries
+    below ceil(lengths[b] / page) are read. lengths and staging are as in
+    naive_decode_attention; an int8 pool comes with per-token f32 scales
+    of the pool's shape without E.
+
+    The steps are the TPU kernel's: one online-softmax step per page, then
+    one for the staging rows. An fp pool keeps q and P unrounded in the
+    cache part and rounds P to the pool dtype; an int8 pool rounds q and
+    k to bf16, puts scale * k_scale on the scores, sums P before the V
+    scale and rounds P * v_scale to bf16. The staging step runs with q and
+    P in bf16 and is masked for a slot with lengths[b] == 0. A slot that
+    sees no key gets zeros.
     """
     B, QH, T, E = q.shape
     if T != 1:
         raise NotImplementedError("multi-token (speculative) decode not ported yet")
-    kc = k_cache[layer] if layer is not None else k_cache
-    vc = v_cache[layer] if layer is not None else v_cache
-    quantized = kc.dtype == torch.int8
-    KH, S = kc.shape[1], kc.shape[2]
+    pk = pool_k[layer] if layer is not None else pool_k
+    pv = pool_v[layer] if layer is not None else pool_v
+    quantized = pk.dtype == torch.int8
+    n_pages, KH, P, _ = pk.shape
     G = QH // KH
     if scale is None:
         scale = 1.0 / (E**0.5)
+    if quantized:
+        ksc = k_scale[layer] if layer is not None else k_scale
+        vsc = v_scale[layer] if layer is not None else v_scale
     lens = lengths.to(q.device).long()
+    table = page_table.to(q.device).long()
     qg = q.reshape(B, KH, G, E)
-
-    def scores(qs, keys):
-        return torch.einsum("bkge,bkse->bkgs", qs, keys.float()) * scale
+    q_c = qg.to(torch.bfloat16).float() if quantized else qg.float()
 
     def softcapped(s):
         return s if softcap is None else softcap * torch.tanh(s / softcap)
 
-    # the cache part: keys [0, lengths[b]) (within the window)
-    pos = torch.arange(S, device=q.device)
-    q_c = qg.to(torch.bfloat16).float() if quantized else qg.float()
-    s_c = scores(q_c, kc)
-    if quantized:
-        ksc = (k_scale[layer] if layer is not None else k_scale).float()
-        vsc = (v_scale[layer] if layer is not None else v_scale).float()
-        s_c = s_c * ksc[:, :, None, :]
-    mask = (pos[None] < lens[:, None])[:, None, None, :]
-    if window is not None:
-        # the query sits at position lengths + staged_n - 1
-        mask = mask & (pos[None] >= (lens + staged_n - window)[:, None])[:, None, None, :]
-    p, m, _ = _masked_softmax_stats(softcapped(s_c), mask.expand(B, KH, G, S))
-    l = p.sum(dim=-1, keepdim=True)
-    p = (p * vsc[:, :, None, :]).to(torch.bfloat16) if quantized else p.to(vc.dtype)
-    o = torch.einsum("bkgs,bkse->bkge", p.float(), vc.float())
-    # the staging part: the staged_n newest tokens, q and P in bf16
+    m = torch.full((B, KH, G, 1), MASK_VALUE, device=q.device)
+    l = torch.zeros((B, KH, G, 1), device=q.device)
+    o = torch.zeros((B, KH, G, E), device=q.device)
+
+    def online_step(s, mask, p_of, v):
+        """One online-softmax step: s, mask (B, KH, G, C); p_of(p) is P as
+        it enters the PV product; v (B, KH, C, E)."""
+        nonlocal m, l, o
+        s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.einsum("bkgc,bkce->bkge", p_of(p), v.float())
+        m = m_new
+
+    n_live = -(-int(lens.max()) // P) if B else 0
+    for j in range(n_live):
+        # a slot past its last live page reads page 0, all of it masked
+        ids = torch.where(j * P < lens, table[:, j], torch.zeros_like(lens))
+        kj = pk[ids]  # (B, KH, P, E)
+        s = torch.einsum("bkge,bkpe->bkgp", q_c, kj.float()) * scale
+        if quantized:
+            s = s * ksc[ids].float()[:, :, None, :]
+        pos = j * P + torch.arange(P, device=q.device)
+        mask = pos[None] < lens[:, None]
+        if window is not None:
+            # the query sits at position lengths + staged_n - 1
+            mask = mask & (pos[None] >= (lens + staged_n - window)[:, None])
+        if quantized:
+            vj = vsc[ids].float()[:, :, None, :]
+
+            def p_of(p, vj=vj):
+                return (p * vj).to(torch.bfloat16).float()
+        else:
+
+            def p_of(p):
+                return p.to(pk.dtype).float()
+
+        online_step(softcapped(s), mask[:, None, None, :].expand(B, KH, G, P), p_of, pv[ids])
     if k_stage is not None:
         ks = k_stage[:, layer] if layer is not None else k_stage
         vs = v_stage[:, layer] if layer is not None else v_stage
         W = ks.shape[2]
-        s_st = softcapped(scores(qg.to(torch.bfloat16).float(), ks))
+        s = torch.einsum("bkge,bkwe->bkgw", qg.to(torch.bfloat16).float(), ks.float()) * scale
         w = torch.arange(W, device=q.device)
-        m_st = (w[None] < staged_n) & (lens[:, None] > 0)
+        mask = (w[None] < staged_n) & (lens[:, None] > 0)
         if window is not None:
-            m_st = m_st & (w[None] >= staged_n - window)
-        m_st = m_st[:, None, None, :].expand(B, KH, G, W)
-        s_st = torch.where(m_st, s_st, torch.full_like(s_st, MASK_VALUE))
-        m_new = torch.maximum(m, s_st.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p_st = torch.where(m_st, torch.exp(s_st - m_new), torch.zeros_like(s_st))
-        l = l * alpha + p_st.sum(dim=-1, keepdim=True)
-        o = o * alpha + torch.einsum("bkgw,bkwe->bkge", p_st.to(torch.bfloat16).float(),
-                                     vs.float())
+            mask = mask & (w[None] >= staged_n - window)
+        online_step(softcapped(s), mask[:, None, None, :].expand(B, KH, G, W),
+                    lambda p: p.to(torch.bfloat16).float(), vs)
     l = torch.where(l == 0, torch.ones_like(l), l)
     return (o / l).to(q.dtype).reshape(B, QH, 1, E)
+
+
+def _quantize_rows(x):
+    """The staging flush's per-row int8 quantizer (kv_write.py:227-231,
+    :155-162): s = max(amax, 1e-8) / 127 and values clip(round(x /
+    max(s, 1e-8)), ±127). x (..., E) float -> (int8 values, f32 s (...))."""
+    s = div_exact(torch.clamp(x.abs().amax(dim=-1), min=1e-8), INT8_MAX)
+    q = torch.round(x / torch.clamp(s, min=1e-8)[..., None])
+    return torch.clamp(q, -INT8_MAX, INT8_MAX).to(torch.int8), s
 
 
 def naive_flush_staging(k_cache, v_cache, k_stage, v_stage, lengths, k_scale=None,
@@ -222,21 +290,56 @@ def naive_flush_staging(k_cache, v_cache, k_stage, v_stage, lengths, k_scale=Non
     TPU flush writes them).
 
     An int8 cache quantizes each staged row as the TPU flush does
-    (kv_write.py:227-231, :155-162): s = max(amax, 1e-8) / 127 goes to the
-    scale cache, and the values are clip(round(x / max(s, 1e-8)), ±127)."""
+    (`_quantize_rows`): the scale goes to the scale cache."""
     W = k_stage.shape[3]
     for b, base in enumerate(lengths.tolist()):
         for cache, scales, stage in ((k_cache, k_scale, k_stage), (v_cache, v_scale, v_stage)):
             rows = min(W, cache.shape[3] - base)
             x = stage[b, :, :, :rows].float()
             if cache.dtype == torch.int8:
-                s = div_exact(torch.clamp(x.abs().amax(dim=-1), min=1e-8), INT8_MAX)
-                q = torch.round(x / torch.clamp(s, min=1e-8)[..., None])
-                cache[:, b, :, base : base + rows] = torch.clamp(q, -INT8_MAX, INT8_MAX).to(
-                    torch.int8)
-                scales[:, b, :, base : base + rows] = s
+                cache[:, b, :, base : base + rows], scales[:, b, :, base : base + rows] = (
+                    _quantize_rows(x))
             else:
                 cache[:, b, :, base : base + rows] = stage[b, :, :, :rows].to(cache.dtype)
+
+
+def naive_flush_staging_paged(pool_k, pool_v, k_stage, v_stage, base_lens, page_table,
+                              k_scale=None, v_scale=None):
+    """In place, through the page table: staged row w of slot b and layer
+    l goes to pool[l, table[b, g // page], :, g % page] with g =
+    base_lens[b] + w, for all W rows (as the TPU flush writes them); rows
+    past the table's last page are dropped. A slot with base_lens[b] == 0
+    holds no request and is skipped: its table row may be stale and point
+    at pages another slot or the prefix cache owns (the TPU flush writes
+    it all the same; ROADMAP Queue 3). int8 pools quantize as
+    naive_flush_staging does."""
+    B, _, _, W, _ = k_stage.shape
+    page = pool_k.shape[3]
+    max_pages = page_table.shape[1]
+    bases = base_lens.to(torch.int64).tolist()
+    pairs = [(b, w) for b, base in enumerate(bases) if base > 0 for w in range(W)
+             if (base + w) // page < max_pages]
+    if not pairs:
+        return
+    dev = pool_k.device
+    bi, wi = (torch.tensor(c, dtype=torch.int64, device=dev) for c in zip(*pairs))
+    g = torch.tensor(bases, dtype=torch.int64, device=dev)[bi] + wi
+    pid = page_table.to(dev).long()[bi, g // page]
+    row = g % page
+    for pool, scales, stage in ((pool_k, k_scale, k_stage), (pool_v, v_scale, v_stage)):
+        x = stage[bi, :, :, wi]  # (N, nl, KH, E)
+        if pool.dtype == torch.int8:
+            pool[:, pid, :, row], scales[:, pid, :, row] = _quantize_rows(x.float())
+        else:
+            pool[:, pid, :, row] = x.to(pool.dtype)
+
+
+def naive_write_kv_token(cache, new, positions):
+    """In place: cache[b, :, positions[b]] = new[b, :, 0] for every b.
+    cache (B, KH, S, D) (a scale cache has D = 1), new (B, KH, 1, D)."""
+    B = cache.shape[0]
+    idx = torch.arange(B, device=cache.device)
+    cache[idx, :, positions.to(cache.device).long()] = new[:, :, 0].to(cache.dtype)
 
 
 # ---- quantized products (nnop_tpu/ops/quantized_matmul.py) ---------------

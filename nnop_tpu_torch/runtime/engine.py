@@ -1,9 +1,11 @@
-"""Inference engine: chunked staged decode + continuous batching, linear mode.
+"""Inference engine: chunked staged decode + continuous batching, linear
+or paged KV.
 
 Counterpart of nnop_tpu/runtime/engine.py for floating-point or quantized
 weights (int8/fp8 and packed int4, models/quantized.py) and a
-floating-point or int8 (non-paged) KV cache. The design is the JAX
-engine's, so greedy token streams match it token for token:
+floating-point or int8 KV cache, held per slot (linear) or in a shared
+page pool (`paged`). The design is the JAX engine's, so greedy token
+streams match it token for token:
 
 * `make_decode_chunk` runs `chunk_size` decode steps per dispatch. Each
   step writes its K/V token into a bf16 STAGING buffer (in place), and
@@ -25,9 +27,18 @@ engine's, so greedy token streams match it token for token:
   lm_head stays weight-only. `quantized_kv` keeps int8 caches with one
   f32 scale per token: admission quantizes the prefilled rows, the flush
   quantizes the staged ones, and decode attention dequantizes.
+* `paged`: the KV lives in pools (n_layers, n_pages, KH, page, E) shared
+  by all slots; a host allocator hands each slot pages for its length
+  plus the flush's slack, and a page table (B, max_pages) on the device
+  leads the paged decode attention and the paged flush to them. The
+  host mirrors the lengths, so page growth needs no device read, and
+  rewrites a slot's table row only when the slot's page list changes.
+  `prefix_cache` shares the pages of a page-aligned prompt prefix between
+  requests (refcounted): a hit reads the shared K/V back and prefills only
+  the remainder.
 
-Paged KV, the prompt prefix cache, speculative decoding and per-token
-logprobs are not ported yet: asking for them raises NotImplementedError.
+Speculative decoding and per-token logprobs are not ported yet: asking
+for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,13 +52,15 @@ import torch
 from nnop_tpu_torch.models.llama import LlamaConfig, _merge_heads, _split_heads, act_fn
 from nnop_tpu_torch.models.quantized import qmatmul
 from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_attention_chunked
-from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged
 from nnop_tpu_torch.ops.quantization import INT8_MAX, QTensor, QTensor4, div_exact
 from nnop_tpu_torch.ops.rms_norm import rms_norm
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
 
 STAGE_W = 32  # staging capacity (rows per slot and layer); chunk_size may be less
+PAGE_SLACK = STAGE_W + 128  # pages a paged slot holds past its length (the JAX engine's)
 
 
 # ---- family-aware building blocks (shared by every engine path) --------
@@ -134,6 +147,8 @@ class EngineState:
     generated inside the current decode chunk live in the bf16 staging
     buffers until `flush_staging` moves them into the caches at chunk end.
     An int8 cache carries one f32 scale per token in k_scale / v_scale.
+    In paged mode k / v (and the scales) are POOLS (n_layers, n_pages, KH,
+    page, E) and `page_table` holds each slot's page ids.
     """
 
     k: torch.Tensor  # (n_layers, B, KH, S, E) cfg.dtype or int8
@@ -144,25 +159,44 @@ class EngineState:
     v_stage: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # (n_layers, B, KH, S) f32, int8 cache only
     v_scale: Optional[torch.Tensor] = None
+    page_table: Optional[torch.Tensor] = None  # (B, max_pages) int32, paged only
 
 
 def init_state(cfg: LlamaConfig, batch: int, max_seq: int, device,
                quantized: bool = False) -> EngineState:
+    """Linear caches: (n_layers, batch, KH, max_seq, E) per slot."""
+    return _init_state(cfg, batch, (batch, max_seq), device, quantized)
+
+
+def init_state_paged(cfg: LlamaConfig, batch: int, n_pages: int, page_size: int,
+                     max_pages: int, device, quantized: bool = False) -> EngineState:
+    """Paged: pools (n_layers, n_pages, KH, page_size, E) and a zero page
+    table (batch, max_pages)."""
+    state = _init_state(cfg, batch, (n_pages, page_size), device, quantized)
+    state.page_table = torch.zeros((batch, max_pages), dtype=torch.int32, device=device)
+    return state
+
+
+def _init_state(cfg: LlamaConfig, batch: int, blocks: tuple[int, int], device,
+                quantized: bool) -> EngineState:
+    """blocks = (n_blocks, rows): the caches are (n_layers, n_blocks, KH,
+    rows, E), one block per slot (linear) or per page (paged)."""
     nl, kh, e = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n_blocks, rows = blocks
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     cache_dtype = torch.int8 if quantized else cfg.dtype
     return EngineState(
-        k=zeros((nl, batch, kh, max_seq, e), cache_dtype),
-        v=zeros((nl, batch, kh, max_seq, e), cache_dtype),
+        k=zeros((nl, n_blocks, kh, rows, e), cache_dtype),
+        v=zeros((nl, n_blocks, kh, rows, e), cache_dtype),
         lengths=zeros((batch,), torch.int32),
         last_token=zeros((batch,), torch.int64),
         k_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
         v_stage=zeros((batch, nl, kh, STAGE_W, e), torch.bfloat16),
-        k_scale=zeros((nl, batch, kh, max_seq), torch.float32) if quantized else None,
-        v_scale=zeros((nl, batch, kh, max_seq), torch.float32) if quantized else None,
+        k_scale=zeros((nl, n_blocks, kh, rows), torch.float32) if quantized else None,
+        v_scale=zeros((nl, n_blocks, kh, rows), torch.float32) if quantized else None,
     )
 
 
@@ -244,13 +278,14 @@ def fuse_decode_weights(params):
 
 
 def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
-                      top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0):
+                      top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+                      paged: bool = False, page_size: int = 0):
     """The engine fast path: `chunk` decode steps per call.
 
     Returns chunk_fn(params, state, generator) -> tokens (chunk, B) int64,
-    updating `state` in place: staging rows, the flushed caches, lengths
-    (+chunk for live slots) and last_token. Takes fused params
-    (fuse_decode_weights).
+    updating `state` in place: staging rows, the flushed caches (pools
+    through `state.page_table` when `paged`), lengths (+chunk for live
+    slots) and last_token. Takes fused params (fuse_decode_weights).
     """
     rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
 
@@ -265,20 +300,27 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
                 # (B, KH, 1, E) -> staging row i of layer li, in place
                 state.k_stage[:, li, :, i] = k[:, :, 0]
                 state.v_stage[:, li, :, i] = v[:, :, 0]
-                return decode_attention(
-                    q, state.k, state.v, state.lengths, state.k_scale, state.v_scale,
-                    k_stage=state.k_stage, v_stage=state.v_stage, staged_n=i + 1,
-                    layer=li, window=cfg.layer_window(li),
-                    softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-                )
+                kw = dict(k_stage=state.k_stage, v_stage=state.v_stage, staged_n=i + 1,
+                          layer=li, window=cfg.layer_window(li), softcap=cfg.attn_softcap,
+                          scale=cfg.attn_scale)
+                if paged:
+                    return paged_decode_attention(q, state.k, state.v, state.page_table,
+                                                  state.lengths, state.k_scale, state.v_scale,
+                                                  **kw)
+                return decode_attention(q, state.k, state.v, state.lengths, state.k_scale,
+                                        state.v_scale, **kw)
 
             cos, sin = rope((state.lengths + i)[:, None])
             x = _embed_tokens(params, cfg, last[:, None])
             logits = _forward_layers(params, cfg, x, cos, sin, attend)[:, 0]
             last = sample_tokens(logits, generator, temperature, top_k, top_p, min_p)
             toks[i] = last
-        flush_staging(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
-                      state.v_stage, state.lengths)
+        if paged:
+            flush_staging_paged(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
+                                state.v_stage, state.lengths, state.page_table, page_size)
+        else:
+            flush_staging(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
+                          state.v_stage, state.lengths)
         state.lengths += (state.lengths > 0).to(torch.int32) * chunk
         state.last_token = last
         return toks
@@ -395,21 +437,25 @@ class Engine:
     tokens per dispatch (one host round-trip and one staging flush per
     chunk). The device is the one the params live on. `quantized_kv`:
     int8 KV caches with per-token scales; `w8a8`: W8A8 prefill products
-    for int8 weights.
+    for int8 weights; `paged`: KV in shared page pools of `page_size`
+    tokens (`n_pages` of them; both sized from max_seq and max_batch by
+    default); `prefix_cache` (paged only): share prompt-prefix pages.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, max_batch=8, max_seq=2048,
                  quantized_kv=False, eos_id=None, tokenizer=None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  min_p: float = 0.0, seed: int = 0, chunk_size: int = 8,
-                 logprobs: bool = False, paged: bool = False, prefill_chunk: int = 512,
-                 prefill_chunks_per_step: int = 4, pipeline_depth: int = 2,
-                 spec_k: int = 0, prefix_cache: bool = False, max_queue: int = 256,
-                 w8a8: bool = True):
-        for name, on in (("paged", paged), ("prefix_cache", prefix_cache),
-                         ("spec_k > 0", spec_k > 0), ("logprobs=True", logprobs)):
+                 logprobs: bool = False, paged: bool = False,
+                 page_size: Optional[int] = None, n_pages: Optional[int] = None,
+                 prefill_chunk: int = 512, prefill_chunks_per_step: int = 4,
+                 pipeline_depth: int = 2, spec_k: int = 0, prefix_cache: bool = False,
+                 max_queue: int = 256, w8a8: bool = True):
+        for name, on in (("spec_k > 0", spec_k > 0), ("logprobs=True", logprobs)):
             if on:
                 raise NotImplementedError(f"Engine({name}) is not ported yet")
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache requires paged=True")
         _check_params(params)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -428,8 +474,11 @@ class Engine:
         self.params = fuse_decode_weights(params)
         # chunk-dispatch pipelining: keep (depth-1) chunks in flight and
         # collect their tokens one step late; EOS detection lags a chunk,
-        # so a finishing slot wastes at most (depth-1) extra chunks
-        self.pipeline_depth = max(1, pipeline_depth)
+        # so a finishing slot wastes at most (depth-1) extra chunks. The
+        # paged path allocates pages from host-tracked lengths, which
+        # count on every chunk being collected: it stays unpipelined.
+        self.paged = paged
+        self.pipeline_depth = 1 if paged else max(1, pipeline_depth)
         self._inflight: list[tuple] = []
         # incremental admission: slot -> in-progress chunked-prefill state
         self.prefill_chunks_per_step = max(1, int(prefill_chunks_per_step))
@@ -438,14 +487,41 @@ class Engine:
         if max_queue < 1:
             raise ValueError("max_queue must be >= 1")
         self.max_queue = max_queue
-        # the flush writes STAGE_W rows at each slot's length, and inflight
-        # chunks can advance a finished slot (depth-1) chunks past max_seq
-        # before collection zeroes it: pad the cache for both
-        alloc = -(-(max_seq + STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size) // 32) * 32
-        self.state = init_state(cfg, max_batch, alloc, self.device, quantized_kv)
+        # paged-only prompt prefix cache: page-aligned token prefix ->
+        # page ids, kept alive by a refcount per page
+        self.prefix_cache = prefix_cache
+        self._prefix_cache: dict[tuple, list[int]] = {}
+        self._page_refs: dict[int, int] = {}
+        self.prefix_hits = 0  # prompt tokens served from the cache
+        if paged:
+            if page_size is None:  # ~8 pages per max-length sequence
+                page_size = min(512, max(128, -(-max_seq // 8 // 128) * 128))
+            if page_size % 128 != 0:
+                raise ValueError("page_size must be a multiple of 128")
+            self.page_size = page_size
+            self.max_pages = -(-(max_seq + PAGE_SLACK) // page_size) + 1
+            self.n_pages = n_pages or max_batch * self.max_pages
+            self.state = init_state_paged(cfg, max_batch, self.n_pages, page_size,
+                                          self.max_pages, self.device, quantized_kv)
+            self._free_pages = list(range(self.n_pages))
+            self._slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+            # host mirror of state.lengths: admission sets L, every
+            # dispatched chunk adds chunk_size to slots with length > 0,
+            # retire and cancel zero it; page growth reads it, not the card
+            self._host_lens = [0] * max_batch
+            # slots whose page list changed since the table was pushed
+            self._dirty_table: set[int] = set()
+        else:
+            # the flush writes STAGE_W rows at each slot's length, and
+            # inflight chunks can advance a finished slot (depth-1) chunks
+            # past max_seq before collection zeroes it: pad for both
+            alloc = -(-(max_seq + STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size)
+                      // 32) * 32
+            self.state = init_state(cfg, max_batch, alloc, self.device, quantized_kv)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p)
+        self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p,
+                                        paged=paged, page_size=page_size if paged else 0)
         self._prefill = make_prefill_unrolled(cfg, w8a8=w8a8)
         self.prefill_chunk = prefill_chunk
         self._prefill_chunk_fn = make_prefill_chunk_step(cfg, w8a8=w8a8)
@@ -469,6 +545,13 @@ class Engine:
         self.state.lengths.zero_()
         self.state.k_stage.zero_()
         self.state.v_stage.zero_()
+        if self.paged:
+            # drop the dummy prompts' cached prefixes: their refs would pin
+            # those pages out of the free list for the server's life
+            self._evict_prefixes(self.n_pages)
+            self._host_lens = [0] * self.max_batch
+            for slot in range(self.max_batch):
+                self._release_pages(slot)
         return self
 
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
@@ -528,9 +611,165 @@ class Engine:
                 req.done = req.cancelled = True
                 self.slots[slot] = None
                 self._admitting.pop(slot, None)
-                self.state.lengths[slot] = 0
+                self._retire_slot(slot)
                 return True
         return False
+
+    def _retire_slot(self, slot: int):
+        """Zero a freed slot's length; in paged mode also its host length,
+        and give its pages back."""
+        self.state.lengths[slot] = 0
+        if self.paged:
+            self._host_lens[slot] = 0
+            self._release_pages(slot)
+
+    # ---- page bookkeeping (paged mode) -----------------------------------
+
+    def _ensure_pages(self, slot: int, tokens_needed: int):
+        """Give `slot` pages for `tokens_needed` tokens; mark its table row
+        dirty only when a page was appended."""
+        pages = self._slot_pages[slot]
+        need = -(-tokens_needed // self.page_size)
+        if len(pages) >= need:
+            return
+        while len(pages) < need:
+            if not self._free_pages:
+                self._evict_prefixes(1)
+            if not self._free_pages:
+                raise RuntimeError("page pool exhausted: raise n_pages or lower load")
+            pid = self._free_pages.pop()
+            self._page_refs[pid] = self._page_refs.get(pid, 0) + 1
+            pages.append(pid)
+        self._dirty_table.add(slot)
+
+    def _flush_page_table(self):
+        """Push the dirty slots' table rows to the device in one indexed
+        copy, queued on the stream before the chunk that reads them (no
+        host sync: the rows leave from pinned memory)."""
+        if not self._dirty_table:
+            return
+        slots = sorted(self._dirty_table)
+        self._dirty_table.clear()
+        rows = torch.zeros((len(slots), 1 + self.max_pages), dtype=torch.int32)
+        for i, s in enumerate(slots):
+            rows[i, 0] = s
+            rows[i, 1 : 1 + len(self._slot_pages[s])] = torch.tensor(self._slot_pages[s])
+        if self.device.type == "cuda":
+            rows = rows.pin_memory().to(self.device, non_blocking=True)
+        self.state.page_table[rows[:, 0].long()] = rows[:, 1:]
+
+    def _release_pages(self, slot: int):
+        for pid in self._slot_pages[slot]:
+            self._page_refs[pid] = self._page_refs.get(pid, 1) - 1
+            if self._page_refs[pid] <= 0:
+                self._free_pages.append(pid)
+        self._slot_pages[slot] = []
+
+    def _evict_prefixes(self, n_needed: int):
+        """Drop the oldest cached prefixes until n_needed pages are free."""
+        for key in list(self._prefix_cache):
+            if len(self._free_pages) >= n_needed:
+                break
+            for pid in self._prefix_cache.pop(key):
+                self._page_refs[pid] = self._page_refs.get(pid, 1) - 1
+                if self._page_refs[pid] <= 0:
+                    self._free_pages.append(pid)
+
+    # ---- prompt prefix cache (paged mode) --------------------------------
+
+    def _match_prefix(self, prompt: list[int]):
+        """Longest cached page-aligned prefix of `prompt` that leaves >= 32
+        tokens to prefill (the JAX engine's rule: its flush writes 32-row
+        aligned windows around the length, so a shorter remainder would
+        let the first flush write into the last SHARED page). Takes a ref
+        on the matched pages. Returns (n tokens, page ids)."""
+        pg = self.page_size
+        for n in range(((len(prompt) - 32) // pg) * pg, 0, -pg):
+            pages = self._prefix_cache.get(tuple(prompt[:n]))
+            if pages is not None:
+                for pid in pages:
+                    self._page_refs[pid] = self._page_refs.get(pid, 0) + 1
+                self.prefix_hits += n
+                return n, list(pages)
+        return 0, []
+
+    def _insert_prefix(self, prompt: list[int], slot: int):
+        """Publish the slot's pages of the longest page-aligned, flush-safe
+        prefix of `prompt` (once per key)."""
+        pg = self.page_size
+        n = ((len(prompt) - 32) // pg) * pg
+        key = tuple(prompt[:n])
+        if n <= 0 or key in self._prefix_cache:
+            return
+        pages = self._slot_pages[slot][: n // pg]
+        for pid in pages:
+            self._page_refs[pid] = self._page_refs.get(pid, 0) + 1
+        self._prefix_cache[key] = list(pages)
+
+    def _gather_prefix_kv(self, pages: list[int], n: int):
+        """Read `n` tokens of K/V out of pool pages as bf16
+        (nl, 1, KH, n, E) buffers for the remainder prefill. The gather
+        copies, so later writes to the pool cannot reach it."""
+        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+
+        def gather(pool, scale):
+            x = pool[:, ids]  # (nl, npg, KH, pg, E)
+            if scale is not None:
+                x = x.float() * scale[:, ids][..., None]
+            nl, npg, kh, pg, e = x.shape
+            x = x.transpose(1, 2).reshape(nl, kh, npg * pg, e)
+            return x[:, None, :, :n].to(torch.bfloat16)
+
+        return (gather(self.state.k, self.state.k_scale),
+                gather(self.state.v, self.state.v_scale))
+
+    def _prefill_remainder(self, prompt: list[int], n_match: int, shared: list[int]):
+        """A prefix hit's prefill: the shared pages' K/V as the context of
+        the remainder's chunked prefill at offset n_match. Returns (the
+        last prompt token's logits (1, V), ks, vs (nl, 1, KH, sbuf, E))."""
+        pk, pv = self._gather_prefix_kv(shared, n_match)
+        remainder = prompt[n_match:]
+        C = self.prefill_chunk
+        rem_chunks = -(-len(remainder) // C)
+        nl, kh, e = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+        sbuf = n_match + rem_chunks * C
+        ks = torch.zeros((nl, 1, kh, sbuf, e), dtype=torch.bfloat16, device=self.device)
+        vs = torch.zeros_like(ks)
+        ks[:, :, :, :n_match] = pk
+        vs[:, :, :, :n_match] = pv
+        logits = None
+        for ci in range(rem_chunks):
+            chunk = remainder[ci * C : (ci + 1) * C]
+            chunk = chunk + [0] * (C - len(chunk))
+            logits, ks, vs = self._prefill_chunk_fn(
+                self.params, torch.tensor([chunk], device=self.device), ks, vs, n_match + ci * C)
+        return logits[:, (len(remainder) - 1) - (rem_chunks - 1) * C], ks, vs
+
+    def _admit_paged(self, slot: int, L: int, ks_l, vs_l, start: int = 0):
+        """Write a prefilled prompt's K/V (nl, KH, >= L, E) into the slot's
+        pages [start / page, ceil(L / page)) in one indexed copy per pool;
+        the pages below `start` are shared prefix pages and are not
+        rewritten. Rows past L in the last page are zeros until the flush
+        writes them."""
+        self._ensure_pages(slot, L + PAGE_SLACK)
+        pg = self.page_size
+        p0, n_live = -(-start // pg), -(-L // pg)
+        ids = torch.tensor(self._slot_pages[slot][p0:n_live], dtype=torch.long,
+                           device=self.device)
+        pad = n_live * pg - L
+
+        def pages_of(x):  # (nl, KH, L, ...) -> (nl, n_live - p0, KH, pg, ...)
+            x = torch.nn.functional.pad(x[:, :, :L], (0, 0) * (x.ndim - 3) + (0, pad))
+            x = x.reshape(x.shape[0], x.shape[1], n_live, pg, *x.shape[3:])
+            return x[:, :, p0:].transpose(1, 2)
+
+        for pool, scales, new in ((self.state.k, self.state.k_scale, ks_l),
+                                  (self.state.v, self.state.v_scale, vs_l)):
+            if self.quantized:
+                q, sc = _quant_token(new[:, :, :L])
+                pool[:, ids], scales[:, ids] = pages_of(q), pages_of(sc)
+            else:
+                pool[:, ids] = pages_of(new.to(pool.dtype))
 
     def _admit(self):
         """Assign queued requests to free slots and advance admission.
@@ -539,14 +778,16 @@ class Engine:
         across engine steps — `prefill_chunks_per_step` chunks per step(),
         round-robin over admitting slots — so active decode streams keep
         producing tokens while a long prompt admits. Short prompts admit
-        in one step."""
+        in one step, and so do prefix-cache hits (only the remainder is
+        prefilled)."""
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
             self.slots[slot] = req
             L = len(req.prompt)
-            if L > self.prefill_chunk:
+            n_match, shared = self._match_prefix(req.prompt) if self.prefix_cache else (0, [])
+            if not n_match and L > self.prefill_chunk:
                 C = self.prefill_chunk
                 n_chunks = -(-L // C)
                 nl, kh, e = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
@@ -561,7 +802,7 @@ class Engine:
                     "logits": None,
                 }
                 continue
-            self._admit_one(slot, req, L)
+            self._admit_one(slot, req, L, n_match, shared)
         burst = 0
         while self._admitting:
             order = sorted(self._admitting)
@@ -581,34 +822,53 @@ class Engine:
                 del self._admitting[pick]
                 L = st["L"]
                 logits = st["logits"][:, (L - 1) - (st["n_chunks"] - 1) * C]
-                self._finalize_admit(pick, st["req"], logits, st["ks"], st["vs"], L)
+                self._finalize_admit(pick, st["req"], logits, st["ks"], st["vs"], L, 0)
             burst += 1
             if burst >= self.prefill_chunks_per_step:
                 break
 
-    def _admit_one(self, slot, req, L):
-        """Single-step admission: bucketed prefill, then finalize. Prompts
-        pad to a power-of-two bucket (at least 64)."""
-        bucket = max(64, 1 << (L - 1).bit_length())
-        tokens = torch.tensor([req.prompt + [0] * (bucket - L)], device=self.device)
-        logits_seq, ks, vs = self._prefill(self.params, tokens)
-        self._finalize_admit(slot, req, logits_seq[:, L - 1], ks, vs, L)
-
-    def _finalize_admit(self, slot, req, logits, ks, vs, L):
-        """Write prefilled K/V into the slot, sample + record the first
-        token, and activate (or immediately retire) the slot."""
-        # in-place slice assignment of the whole bucket width: rows beyond
-        # L are invisible (decode masks by lengths, flushes overwrite them)
-        S = self.state.k.shape[3]
-        W = min(ks.shape[3], S)
-        if self.quantized:  # per-token int8, in place
-            for cache, scales, new in ((self.state.k, self.state.k_scale, ks),
-                                       (self.state.v, self.state.v_scale, vs)):
-                cache[:, slot, :, :W], scales[:, slot, :, :W] = _quant_token(new[:, 0, :, :W])
+    def _admit_one(self, slot, req, L, n_match=0, shared=()):
+        """Single-step admission, then finalize: a prefix hit seeds the
+        slot with the shared pages and prefills only the remainder;
+        otherwise the prompt prefills padded to a power-of-two bucket (at
+        least 64)."""
+        if n_match:
+            self._slot_pages[slot] = list(shared)
+            self._dirty_table.add(slot)  # the row must show the adopted pages
+            logits, ks, vs = self._prefill_remainder(req.prompt, n_match, shared)
+            self._admit_paged(slot, L, ks[:, 0], vs[:, 0], start=n_match)
         else:
-            self.state.k[:, slot, :, :W] = ks[:, 0, :, :W]
-            self.state.v[:, slot, :, :W] = vs[:, 0, :, :W]
+            bucket = max(64, 1 << (L - 1).bit_length())
+            tokens = torch.tensor([req.prompt + [0] * (bucket - L)], device=self.device)
+            logits_seq, ks, vs = self._prefill(self.params, tokens)
+            logits = logits_seq[:, L - 1]
+        self._finalize_admit(slot, req, logits, ks, vs, L, n_match)
+
+    def _finalize_admit(self, slot, req, logits, ks, vs, L, n_match):
+        """Write prefilled K/V into the slot (a prefix hit's are written
+        already), sample + record the first token, and activate (or
+        immediately retire) the slot."""
+        if self.paged:
+            if not n_match:
+                self._admit_paged(slot, L, ks[:, 0], vs[:, 0])
+            self._host_lens[slot] = L
+        else:
+            # in-place slice assignment of the whole bucket width: rows
+            # beyond L are invisible (decode masks by lengths, flushes
+            # overwrite them)
+            S = self.state.k.shape[3]
+            W = min(ks.shape[3], S)
+            if self.quantized:  # per-token int8, in place
+                for cache, scales, new in ((self.state.k, self.state.k_scale, ks),
+                                           (self.state.v, self.state.v_scale, vs)):
+                    cache[:, slot, :, :W], scales[:, slot, :, :W] = _quant_token(
+                        new[:, 0, :, :W])
+            else:
+                self.state.k[:, slot, :, :W] = ks[:, 0, :, :W]
+                self.state.v[:, slot, :, :W] = vs[:, 0, :, :W]
         self.state.lengths[slot] = L
+        if self.prefix_cache:
+            self._insert_prefix(req.prompt, slot)
         # sample the prefill token with the same settings as decode
         first = int(sample_tokens(logits, self._gen, self.temperature, self.top_k,
                                   self.top_p, self.min_p)[0])
@@ -621,7 +881,7 @@ class Engine:
                 or req.max_new_tokens <= 1):
             req.done = True
             self.slots[slot] = None
-            self.state.lengths[slot] = 0
+            self._retire_slot(slot)
 
     def step(self):
         """Admit pending requests, dispatch one decode CHUNK, and collect
@@ -632,7 +892,15 @@ class Engine:
                 if r is not None and s not in self._admitting}
         dispatched = False
         if live:
+            if self.paged:
+                # pages for this chunk's flush, from the host lengths: no
+                # device read
+                for slot in live:
+                    self._ensure_pages(slot, self._host_lens[slot] + self.chunk_size + PAGE_SLACK)
+                self._flush_page_table()
             toks = self._chunk(self.params, self.state, self._gen)
+            if self.paged:  # the chunk's own advance of the lengths
+                self._host_lens = [n + self.chunk_size if n > 0 else 0 for n in self._host_lens]
             # snapshot slot->request at dispatch time: collection must not
             # attribute this chunk's tokens to a request admitted into a
             # recycled slot later
@@ -707,7 +975,7 @@ class Engine:
                     req.done = True
                     if self.slots[slot] is req:
                         self.slots[slot] = None
-                    self.state.lengths[slot] = 0
+                    self._retire_slot(slot)
                     break
 
     def run(self, max_steps: int = 10_000):

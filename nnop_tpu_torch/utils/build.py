@@ -37,13 +37,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset, stream
     "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths, o,
-    # B, QH, KH, S, E, n_layers, layer, W, staged_n, scale, q_is_f32,
-    # cache_is_int8, stream
-    "nnop_decode_attention": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
+    # page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers, layer,
+    # W, staged_n, scale, q_is_f32, cache_is_int8, stream
+    "nnop_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _I, _P],
     # k_stage, v_stage, k_cache, v_cache, k_scale, v_scale, lengths,
-    # B, n_layers, KH, S, W, E, cache_kind, stream
-    "nnop_flush_staging": [_P] * 7 + [_I] * 7 + [_P],
+    # page_table, B, n_blocks, max_pages, n_layers, KH, S, W, E, cache_kind,
+    # stream
+    "nnop_flush_staging": [_P] * 8 + [_I] * 9 + [_P],
+    # cache, new, positions, B, KH, S, D, elem_bytes, stream
+    "nnop_write_kv_token": [_P] * 3 + [_I] * 5 + [_P],
     # x, w, scale, out, partial, M, N, K, mode, group, pack_block, splits, stream
     "nnop_qmm": [_P] * 5 + [_I] * 7 + [_P],
     # xv, xs, w, ws, out, M, N, K, out_is_f32, stream

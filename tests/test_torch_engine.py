@@ -22,6 +22,17 @@ JCFG = JLlamaConfig.tiny(dtype=jnp.float32)
 CFG = LlamaConfig.tiny(dtype=torch.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel worker
+    processes, and a default thread pool per worker oversubscribes the
+    cores (tens of times slower on these tiny tensors under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jp = j_init_params(jax.random.key(0), JCFG)

@@ -10,8 +10,8 @@ on the card's machine:
 2e-2 absolute for bf16 outputs (one bf16 ulp below magnitude 4 is
 <= 1.6e-2, and both sides accumulate in fp32 in another order), scaled
 by max(1, max|plain|) for the quantized products (bf16 sums over K in
-another order); the flush (also the int8 one) and the W8A8 product with
-f32 output must be bit-exact.
+another order); the flushes (also the int8 and paged ones), the one-token
+write and the W8A8 product with f32 output must be bit-exact.
 """
 
 import pytest
@@ -19,8 +19,9 @@ import torch
 
 from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_fwd
-from nnop_tpu_torch.ops.kv_write import flush_staging
+from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
 from nnop_tpu_torch.ops.quantization import quantize, quantize4
 from nnop_tpu_torch.ops.quantized_matmul import (
     quantize_act,
@@ -127,6 +128,73 @@ def test_int8_flush_kernel(gen):
     torch.cuda.synchronize()
     for g, w in zip(got, (kq.values, vq.values, kq.scale, vq.scale)):
         assert torch.equal(g, w)
+
+
+def _paged_pool(gen, quantized, n_pages=16, page=128):
+    """Stacked pools (2 layers) of bf16 or int8 with per-token scales,
+    and a shuffled table for lengths [0, 1, 129, 300]; unread entries
+    hold an id past the pool."""
+    shape = (2, n_pages, 8, page, 128)
+    if quantized:
+        kq, vq = _q8_cache(gen, *shape), _q8_cache(gen, *shape)
+        pools = (kq.values, vq.values, kq.scale, vq.scale)
+    else:
+        pools = (_bf(gen, *shape), _bf(gen, *shape))
+    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").to(torch.int32)
+    table = torch.full((4, 4), 10_000, dtype=torch.int32, device="cuda")
+    table[1, :1], table[2, :2], table[3, :3] = perm[:1], perm[1:3], perm[3:6]
+    return pools, lengths, table
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_kernel(gen, quantized):
+    (kp, vp, *scales), lengths, table = _paged_pool(gen, quantized)
+    ks, vs = _bf(gen, 4, 2, 8, 32, 128), _bf(gen, 4, 2, 8, 32, 128)
+    q = _bf(gen, 4, 32, 1, 128)
+    args = (q, kp, vp, table, lengths, *scales)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=9, layer=1)
+    before = paged_decode_attention.launches, paged_decode_attention.int8_launches
+    got = paged_decode_attention(*args, **kw)
+    assert (paged_decode_attention.launches, paged_decode_attention.int8_launches) == (
+        before[0] + 1, before[1] + int(quantized))
+    assert (got[0] == 0).all()  # the empty slot
+    torch.testing.assert_close(got, naive.naive_paged_decode_attention(*args, **kw), **TOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_paged_flush_kernel(gen, quantized):
+    """Slot 0 is idle with a stale row naming slot 3's first page: that
+    page must stay as it was; the rest bit-exact against the plain flush."""
+    pools, lengths, table = _paged_pool(gen, quantized)
+    table[0] = table[3]
+    ks, vs = _bf(gen, 4, 2, 8, 32, 128), _bf(gen, 4, 2, 8, 32, 128)
+    base = torch.tensor([0, 1, 100, 250], dtype=torch.int32, device="cuda")
+    scales = pools[2:] if quantized else (None, None)
+    got = [t.clone() for t in pools[:2]] + [t.clone() if t is not None else None for t in scales]
+    flush_staging_paged(*got[:2], *got[2:], ks, vs, base, table, 128)
+    want = [t.clone() if t is not None else None for t in (*pools[:2], *scales)]
+    naive.naive_flush_staging_paged(*want[:2], ks, vs, base, table, *want[2:])
+    torch.cuda.synchronize()
+    stale = int(table[3, 0])
+    for g, w, old in zip(got, want, (*pools[:2], *scales)):
+        if g is not None:
+            assert torch.equal(g, w) and torch.equal(g[:, stale], old[:, stale])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32],
+                         ids=["bf16", "int8", "f32_scale"])
+def test_write_kv_token_kernel(gen, dtype):
+    D = 1 if dtype == torch.float32 else 128
+    cache = (_bf(gen, 3, 8, 100, D) * 50).to(dtype)
+    new = (_bf(gen, 3, 8, 1, D) * 50).to(dtype)
+    pos = torch.tensor([0, 57, 99], dtype=torch.int32, device="cuda")
+    want = cache.clone()
+    naive.naive_write_kv_token(want, new, pos)
+    before = write_kv_token.launches
+    write_kv_token(cache, new, pos)
+    torch.cuda.synchronize()
+    assert write_kv_token.launches == before + 1 and torch.equal(cache, want)
 
 
 def _close_scaled(got, want):

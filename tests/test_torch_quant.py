@@ -40,6 +40,17 @@ from nnop_tpu_torch.ops.quantized_matmul import (
 SHAPES = {"aligned": (8, 256, 384), "ragged": (100, 300, 200)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel worker
+    processes, and a default thread pool per worker oversubscribes the
+    cores (tens of times slower on these tiny tensors under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return tensor_from_numpy(np.asarray(a))
 

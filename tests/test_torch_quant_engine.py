@@ -33,6 +33,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs test files in parallel worker
+    processes, and a default thread pool per worker oversubscribes the
+    cores (tens of times slower on these tiny tensors under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def float_params():
     return j_init_params(jax.random.key(0), JCFG)
