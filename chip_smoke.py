@@ -30,9 +30,18 @@ non-zero:
      concurrent requests of 512 prompt tokens, half of them repeating the
      first 384 tokens (3 pages) of another; prefix hits, page accounting,
      and no launch of the linear decode attention or flush.
-Each serving phase sets the launch counts to 0 just before it serves and
-reads them just after. The second-to-last line is {"kernels": [...]}, the
-last line {"ok": true, "device": {...}}.
+  8. training, after the serving phases: (a) gradient parity at full
+     width, Llama-3-8B with 2 layers, B=1, L=2048: loss_fn and every
+     gradient leaf through the kernels against the plain ops on the card;
+     (b) cli.train_loop on Llama-3-8B at full width with 8 layers, B=1,
+     L=4096, the CLI's synthetic stream, AdamW at lr 1e-4 (the CLI's
+     default 1e-3 raises step 1's loss there), 5 steps: finite losses,
+     step 1's batch at a lower loss after the last step, the exact launch
+     counts of every step, no plain version called; ms per step, tokens/s,
+     peak memory and a torch.profiler breakdown of the last step.
+Each serving phase (and phase 8b) sets the launch counts to 0 just before
+it runs and reads them just after. The second-to-last line is
+{"kernels": [...]}, the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -112,6 +121,24 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def tile_rel_err(got, ref, tile=64):
+    """The largest |got - ref| / |ref| (Frobenius norms) over the `tile`-row
+    tiles of each (batch, head) of (B, H, N, E) tensors. Each tile is held
+    to its own scale, so an error on the deep rows or keys, whose gradients
+    are small, reads as large as one on the first. A tile whose reference
+    is zero must be zero."""
+    def tiles(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, -t.shape[2] % tile))
+        return t.reshape(*t.shape[:2], -1, tile * t.shape[3])
+
+    dn = tiles(got.float() - ref.float()).norm(dim=-1)
+    rn = tiles(ref.float()).norm(dim=-1)
+    zero = rn == 0
+    if bool((dn[zero] > 0).any()):
+        return float("inf")
+    return (dn[~zero] / rn[~zero]).max().item()
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -135,9 +162,14 @@ def phase_build():
     res = build()
     load_library()
     print(f"phase 2 build: {res.seconds:.2f} s nvcc -> {res.path}")
+    entry = spill = ""
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:  # the mangled name holds the kernel's name
+            entry = line.split("'")[1].split("_cu_")[-1][:70]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line or "error" in line.lower():
+            print(f"  ptxas: {entry}: {line.strip()}; {spill}")
 
 
 class Phase3:
@@ -148,20 +180,23 @@ class Phase3:
         self.results = {}
 
     def report(self, name, case, err, tol, why, ms=None, plain_ms=None, bounds=None,
-               library=None, main=False):
+               library=None, main=False, measure="max_abs_err", abs_err=None):
         """bounds: bound()'s dict for a timed case; library: the library
-        call's ms (main cases; None where there is none)."""
+        call's ms (main cases; None where there is none). `err` is what
+        `measure` names; where that is not the max abs error (the
+        gradients' relative errors), abs_err gives it for the kernels line."""
         timing = "" if ms is None else f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
         if bounds is not None:
             timing += f"; bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']})"
-        if main:
+        if main or library is not None:
             timing += "; library " + ("none" if library is None else f"{library:.4f} ms")
-        print(f"phase 3 {name} [{case}]: max_abs_err {err:.3e} (tol {tol:g}: {why})"
+        shown = "" if abs_err is None else f"; max_abs_err {abs_err:.3e}"
+        print(f"phase 3 {name} [{case}]: {measure} {err:.3e} (tol {tol:g}: {why}){shown}"
               f"{timing}")
-        check(err <= tol, f"{name} [{case}] error {err} > {tol}")
+        check(err <= tol, f"{name} [{case}] {measure} {err} > {tol}")
         if main:
-            self.results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                      library_ms=library, **bounds)
+            self.results[name] = dict(max_abs_err=err if abs_err is None else abs_err, ms=ms,
+                                      plain_ms=plain_ms, library_ms=library, **bounds)
 
 
 def phase_kernels():
@@ -190,8 +225,7 @@ def phase_kernels():
     w = (0.5 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(bf)
     for rows in (8, 512):
         x = randn(rows, 4096)
-        lib = (library_ms("rms_norm", lambda: F.rms_norm(x, (4096,), w, 1e-5)) if rows == 8
-               else None)
+        lib = library_ms("rms_norm", lambda: F.rms_norm(x, (4096,), w, 1e-5))
         err = max_err(rms_norm(x, w, 1e-5), naive.naive_rms_norm(x, w, eps=1e-5))
         p3.report("rms_norm", f"({rows}, 4096) bf16", err, BF16_TOL, BF16_TOL_WHY,
                   device_ms(lambda: rms_norm(x, w, 1e-5)),
@@ -239,7 +273,7 @@ def phase_kernels():
         if n_valid is not None:
             mask &= cols < n_valid
         lib = library_ms("flash_fwd", lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)) if is_main else None
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
         p3.report("flash_fwd", case, err, BF16_TOL, BF16_TOL_WHY + " (o bf16, lse f32)",
                   device_ms(lambda: flash_fwd(q, k, v, **kw)),
                   device_ms(lambda: naive.naive_attention(q, k, v, **kw), n=5),
@@ -308,7 +342,190 @@ def phase_kernels():
 
     phase_paged_kernels(p3, gen, randn)
     phase_products(p3, gen, randn)
+    phase_train_kernels(p3, gen, randn)
     return p3.results
+
+
+BWD_REL_TOL = 1e-2
+BWD_REL_WHY = ("the largest |got - plain| / |plain| over the 64-row query (dq) or key (dk, dv) "
+               "tiles of every head. On an H100 80GB HBM3 at 700 W the kernels read 3.9e-4 to "
+               "1.1e-3 (bf16 rounding of the outputs, and of P and dS where the fp32 sums before "
+               "them differ in order) and planted faults 0.12 to 0.85 (phase 3 prints them)")
+DW_REL_TOL = 1e-5
+DW_REL_WHY = ("|dw - plain| / |plain|: the same fp32 products summed over 4096 rows in another "
+              "order, ~1e-7 relative per sum")
+
+
+def phase_train_kernels(p3, gen, randn):
+    """The training path's kernels: A with rstd and A-bwd at (4096, 4096),
+    B backward at q (1, 32, 4096, 128), C then dQ and dK/dV at the 8B
+    training geometry (q (2, 32, 4096, 128), kv (2, 8, 4096, 128), causal),
+    the backward's edge cases, and two bit-identical backward runs."""
+    import torch.nn.functional as F
+
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.flash_attention import flash_fwd
+    from nnop_tpu_torch.ops.flash_attention_bwd import (
+        flash_attention_bwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+    from nnop_tpu_torch.ops.rms_norm import rms_norm_bwd, rms_norm_fwd
+    from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope_bwd
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    # A with rstd, A-bwd: the 8B trainer's rows (B * L = 4096), offset 0
+    x, dy = randn(4096, 4096), randn(4096, 4096)
+    w = (0.5 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(bf)
+    y, rstd = rms_norm_fwd(x, w, 1e-5)
+    y_ref, rstd_ref = naive.naive_rms_norm_fwd(x, w, eps=1e-5)
+    rel = ((rstd - rstd_ref).abs() / rstd_ref).max().item()
+    check(rel <= 1e-5, f"rms_norm_rstd: rstd relative error {rel} > 1e-5")
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    p3.report("rms_norm_rstd", f"(4096, 4096) bf16 (rstd relative error {rel:.2e} <= 1e-5)",
+              max_err(y, y_ref), BF16_TOL, BF16_TOL_WHY,
+              device_ms(lambda: rms_norm_fwd(x, w, 1e-5)),
+              device_ms(lambda: naive.naive_rms_norm_fwd(x, w, eps=1e-5)),
+              bound(2 * nbytes(x) + nbytes(w, rstd), 4 * x.numel(), "f32"),
+              library_ms("rms_norm_rstd", lambda: F.rms_norm(xg, (4096,), wg, 1e-5)), True)
+    dx, dw = rms_norm_bwd(x, w, rstd, dy)
+    dx_ref, dw_ref = naive.naive_rms_norm_bwd(x, w, rstd, dy)
+    p3.report("rms_norm_bwd", "dw (4096,) f32, summed over 4096 rows",
+              ((dw - dw_ref).norm() / dw_ref.norm()).item(), DW_REL_TOL, DW_REL_WHY,
+              measure="relative error", abs_err=max_err(dw, dw_ref))
+    y_lib = F.rms_norm(xg, (4096,), wg, 1e-5)
+    p3.report("rms_norm_bwd", "dx (4096, 4096) bf16", max_err(dx, dx_ref), BF16_TOL,
+              BF16_TOL_WHY, device_ms(lambda: rms_norm_bwd(x, w, rstd, dy)),
+              device_ms(lambda: naive.naive_rms_norm_bwd(x, w, rstd, dy)),
+              bound(3 * nbytes(x) + nbytes(w, rstd, dw), 8 * x.numel(), "f32"),
+              library_ms("rms_norm_bwd", lambda: torch.autograd.grad(
+                  y_lib, (xg, wg), dy, retain_graph=True)), True)
+    del x, dy, xg, wg, y_lib, dx, dx_ref, y, y_ref
+
+    # B backward: the inverse rotation of the 8B trainer's q and k gradients
+    dq, dk = randn(1, 32, 4096, 128, scale=0.5), randn(1, 8, 4096, 128, scale=0.5)
+    cos, sin = RotaryEmbedding(128, 500000.0)(torch.arange(4096, device=dev)[None])
+    got, want = llama_rope_bwd(dq, dk, cos, sin), naive.naive_rope(dq, dk, cos, sin, -1.0)
+    p3.report("llama_rope_bwd", "dq (1, 32, 4096, 128), dk (1, 8, 4096, 128) bf16",
+              max(max_err(got[0], want[0]), max_err(got[1], want[1])), BF16_TOL, BF16_TOL_WHY,
+              device_ms(lambda: llama_rope_bwd(dq, dk, cos, sin)),
+              device_ms(lambda: naive.naive_rope(dq, dk, cos, sin, -1.0)),
+              bound(2 * nbytes(dq, dk) + nbytes(cos, sin), 3 * (dq.numel() + dk.numel()), "f32"),
+              None, True)
+    del dq, dk, got, want
+
+    # C, dQ and dK/dV at the 8B training geometry
+    def plain_bwd(q, k, v, o, lse, do, **kw):
+        """naive_attention_bwd one batch element at a time (its fp32
+        (QH, QL, KL) intermediates are 2.1 GB each at L = 4096)."""
+        kp = kw.pop("kpad_mask", None)
+        parts = [naive.naive_attention_bwd(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], o[b:b + 1], lse[b:b + 1], do[b:b + 1],
+            kpad_mask=None if kp is None else kp[b:b + 1], **kw) for b in range(q.shape[0])]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    def plain_fwd(q, k, v, **kw):
+        parts = [naive.naive_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], return_lse=True,
+                                       **kw) for b in range(q.shape[0])]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    L, scale = 4096, 128 ** -0.5
+    kw = dict(causal=True, scale=scale)
+    q, k, v, do = (randn(2, h, L, 128) for h in (32, 8, 8, 32))
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = plain_fwd(q, k, v, **kw)
+    pairs = 2 * 32 * L * (L + 1) // 2  # the (row, key) pairs causal attention computes
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = functools.partial(F.scaled_dot_product_attention, is_causal=True, scale=scale,
+                             enable_gqa=True)
+    p3.report("flash_fwd", "8B training geometry: q (2, 32, 4096, 128), kv (2, 8, 4096, 128), "
+              "causal", max(max_err(o, o_ref), max_err(lse, lse_ref)), BF16_TOL,
+              BF16_TOL_WHY + " (o bf16, lse f32)", device_ms(lambda: flash_fwd(q, k, v, **kw), n=5),
+              device_ms(lambda: plain_fwd(q, k, v, **kw), n=1, reps=3),
+              bound(nbytes(q, k, v, o, lse), 4 * 128 * pairs, "bf16"),
+              library_ms("flash_fwd", lambda: sdpa(q, k, v), n=5))
+    del o_ref, lse_ref
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    ref = plain_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          "dQ/dK/dV: two runs on the same inputs differ")
+    print("phase 3 flash_bwd: two runs of dQ and dK/dV on the same inputs are bit-identical")
+    del again
+    graph = []  # SDPA's forward, run once by the warm-up call
+
+    def sdpa_bwd():
+        if not graph:
+            graph.append(sdpa(qg, kg, vg))
+        return torch.autograd.grad(graph[0], (qg, kg, vg), do, retain_graph=True)
+
+    lib = library_ms("flash_bwd", sdpa_bwd, n=5)
+    plain_ms = device_ms(lambda: plain_bwd(q, k, v, o, lse, do, **kw), n=1, reps=3)
+    # the backward's work: five products of 2 * E flops per visible pair
+    # (S, dP, dQ in the dQ kernel; the dK/dV kernel needs S and dP again
+    # from its inputs, plus dK and dV)
+    p3.report("flash_bwd_dq", "dq (2, 32, 4096, 128), causal, GQA 32/8",
+              tile_rel_err(dq, ref[0]), BWD_REL_TOL, BWD_REL_WHY,
+              device_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw), n=5), plain_ms,
+              bound(nbytes(q, k, v, o, do, lse, dq, delta), 3 * 2 * 128 * pairs, "bf16"), lib,
+              True, "tile relative error", max_err(dq, ref[0]))
+    p3.report("flash_bwd_dkv", "dk, dv (2, 8, 4096, 128), causal, GQA 32/8",
+              max(tile_rel_err(dk, ref[1]), tile_rel_err(dv, ref[2])), BWD_REL_TOL,
+              BWD_REL_WHY + " (the larger of dk's and dv's)",
+              device_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw), n=5), plain_ms,
+              bound(nbytes(q, k, v, do, lse, delta, dk, dv), 4 * 2 * 128 * pairs, "bf16"), lib,
+              True, "tile relative error", max(max_err(dk, ref[1]), max_err(dv, ref[2])))
+    print(f"phase 3 flash_bwd: the whole backward's bound (five products) "
+          f"{5 * 2 * 128 * pairs / PEAK_OPS_PER_S['bf16'] * 1e3:.4f} ms")
+    # the gate's reach: the plain backward with a planted fault, as a dQ
+    # kernel that drops the last key tile would give, and a dK/dV kernel
+    # that skips the last query tile (read on the key tiles before the
+    # last, which it leaves all zero)
+    last = (torch.arange(L, device=dev) < L - 64).expand(2, L)
+    no_tile = plain_bwd(q, k, v, o, lse, do, kpad_mask=last, **kw)[0]
+    no_rows = plain_bwd(q[:, :, :-64], k, v, o[:, :, :-64], lse[:, :, :-64], do[:, :, :-64],
+                        **kw)
+    planted = (tile_rel_err(no_tile, ref[0]),
+               tile_rel_err(no_rows[1][:, :, :-64], ref[1][:, :, :-64]),
+               tile_rel_err(no_rows[2][:, :, :-64], ref[2][:, :, :-64]))
+    print(f"phase 3 flash_bwd: planted faults read (tile relative error, tol {BWD_REL_TOL:g}): "
+          f"dq without the last key tile {planted[0]:.3e}; without the last query tile, dk "
+          f"{planted[1]:.3e}, dv {planted[2]:.3e}")
+    check(min(planted) > BWD_REL_TOL, f"a planted fault passes the gradients' gate: {planted}")
+    del q, k, v, do, o, lse, dq, dk, dv, delta, ref, qg, kg, vg, graph, no_tile, no_rows
+    torch.cuda.empty_cache()
+
+    # edge cases: ragged L, E = 64, non-causal, kpad hiding keys 0-6 of
+    # batch 1 (under causal its rows 0-6 see no key: zero gradients)
+    for case, causal, QL, KL, E, kpad in (
+        ("causal, L=1000 (ragged), E=128", True, 1000, 1000, 128, False),
+        ("causal, L=1000, E=64, kpad: rows 0-6 of batch 1 see no key", True, 1000, 1000, 64,
+         True),
+        ("non-causal, QL=1000, KL=700, E=128, kpad", False, 1000, 700, 128, True),
+    ):
+        q, do = randn(2, 32, QL, E), randn(2, 32, QL, E)
+        k, v = randn(2, 8, KL, E), randn(2, 8, KL, E)
+        mask = None
+        if kpad:
+            mask = torch.ones((2, KL), dtype=torch.bool, device=dev)
+            mask[1, :7] = False
+        ekw = dict(causal=causal, scale=E ** -0.5, kpad_mask=mask)
+        o, lse = flash_fwd(q, k, v, **ekw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **ekw)
+        ref = plain_bwd(q, k, v, o, lse, do, **ekw)
+        if kpad and causal:
+            check(got[0][1, :, :7].abs().max().item() == 0.0,
+                  "flash_bwd: rows that see no key must get zero dq")
+        for name, which, g, r in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"), "qkv",
+                                     got, ref):
+            check(bool(torch.isfinite(g).all()), f"{name} [{case}]: non-finite d{which}")
+            p3.report(name, f"{case}: d{which}", tile_rel_err(g, r), BWD_REL_TOL, BWD_REL_WHY,
+                      measure="tile relative error", abs_err=max_err(g, r))
+        del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
 
 
 def phase_paged_kernels(p3, gen, randn):
@@ -663,6 +880,7 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul
 
     # the engine's first-token logits (its own prefill path, on the
     # kernels) against the plain-op forward on the card
+    @torch.no_grad()
     def plain(toks):
         return forward(params, torch.tensor([toks], device=dev), cfg, plain=True,
                        matmul=matmul)[0, -1]
@@ -725,6 +943,196 @@ def check_pages(eng, stats):
           f"cache (refcount 1 each), {len(free)} free, of {eng.n_pages}")
 
 
+LOSS_RTOL = 2e-4
+LOSS_RTOL_WHY = ("10x the reading of 1.98e-5 on an H100 80GB HBM3 at 700 W: the two paths round "
+                 "activations to bf16 in different places. At random init the loss sits near "
+                 "ln(128256) whatever the layers compute, so the gradients carry this check")
+GRAD_COS = 0.9995
+GRAD_REL = 3e-2
+GRAD_WHY = ("bf16 gradients through two layers of bf16 activations rounded in different "
+            "places. The worst leaf read cosine 0.999874 on an H100 80GB HBM3 at 700 W: "
+            "1 - cosine is held to 4x that, |g - plain| / |plain| to about 2x the "
+            "sqrt(2 (1 - cosine)) it implies; both stricter than the minimum cosine of 0.99")
+# per step of the 8-layer trainer: 2 norms per layer + the final norm, q
+# and k rotated per layer, one attention per layer
+TRAIN_LAUNCHES_PER_STEP = {"rms_norm_rstd": 17, "rms_norm_bwd": 17, "llama_rope": 16,
+                           "llama_rope_bwd": 16, "flash_fwd": 8, "flash_bwd_dq": 8,
+                           "flash_bwd_dkv": 8}
+
+
+def phase_grad_parity():
+    """8a: loss and gradients through the kernels and through the plain
+    ops, Llama-3-8B at full width with 2 layers, B=1, L=2048."""
+    from nnop_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from nnop_tpu_torch.parallel.tp_llama import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.llama3_8b(n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(SEED)
+    toks, tgts = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))).to(dev)
+                  for _ in range(2))
+    results = []
+    for plain in (False, True):
+        loss = loss_fn(params, toks, tgts, cfg, plain=plain)
+        results.append((loss.item(), torch.autograd.grad(loss, leaves)))
+        del loss
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    cos = [_cosine(a, b) for a, b in zip(k_grads, p_grads)]
+    grel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+            for a, b in zip(k_grads, p_grads)]
+    print(f"phase 8a grads: Llama-3-8B width, 2 layers, B=1, L=2048: loss kernels {k_loss:.6f} "
+          f"plain {p_loss:.6f} (relative {rel:.2e} <= {LOSS_RTOL:g}: {LOSS_RTOL_WHY}); "
+          f"{len(cos)} gradient leaves, cosine min {min(cos):.6f} mean "
+          f"{statistics.mean(cos):.6f} (>= {GRAD_COS} each), |g - plain| / |plain| max "
+          f"{max(grel):.3e} mean {statistics.mean(grel):.3e} (<= {GRAD_REL:g} each): {GRAD_WHY}")
+    check(np.isfinite(k_loss) and rel <= LOSS_RTOL, f"loss relative difference {rel}")
+    check(all(bool(torch.isfinite(g).all()) for g in k_grads), "a non-finite gradient")
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    check(min(cos) >= GRAD_COS, f"gradient leaf {worst}: cosine {cos[worst]}")
+    worst = max(range(len(grel)), key=grel.__getitem__)
+    check(max(grel) <= GRAD_REL, f"gradient leaf {worst}: relative error {grel[worst]}")
+    del params, leaves, results, k_grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _PlainCalls:
+    """Within the block, every plain version (`naive_*`) the kernel
+    modules and the model can reach is replaced by a wrapper that counts
+    its calls."""
+
+    def __init__(self):
+        import importlib
+
+        self.calls, self.saved = {}, []
+        for name in ("ops.naive", "ops.rms_norm", "ops.rope", "ops.flash_attention",
+                     "ops.flash_attention_bwd", "models.llama"):
+            mod = importlib.import_module(f"nnop_tpu_torch.{name}")
+            for attr in dir(mod):
+                if attr.startswith("naive_") and callable(getattr(mod, attr)):
+                    self.saved.append((mod, attr, getattr(mod, attr)))
+
+    def __enter__(self):
+        for mod, attr, fn in self.saved:
+            def counted(*a, _fn=fn, _attr=attr, **kw):
+                self.calls[_attr] = self.calls.get(_attr, 0) + 1
+                return _fn(*a, **kw)
+            setattr(mod, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def phase_train(counters, idle):
+    """8b: cli.train_loop on Llama-3-8B at full width with 8 layers, B=1,
+    L=4096, the CLI's synthetic stream, AdamW at lr 1e-4 for 5 steps, the
+    last step under torch.profiler. Returns the launch counts.
+
+    The stream (7*i+3) % 128256 has a period of 128256 tokens, more than
+    the steps see, so no step's (token, next token) pairs occur in an
+    earlier step's batch (the script counts them): the per-step losses
+    cannot show learning, and they are reported, not checked. What the
+    steps learned is checked on step 1's batch instead: its loss,
+    evaluated again after the last step, must be below its loss at step 1."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nnop_tpu_torch.cli import train_loop
+    from nnop_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from nnop_tpu_torch.parallel.tp_llama import tree_leaves
+    from nnop_tpu_torch.runtime.dataio import batches, pack_tokens
+
+    n_layers, seq, steps = 8, 4096, 5
+    lr = 1e-4  # the CLI's default 1e-3 raises step 1's loss at this width (PERF.md)
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.llama3_8b(n_layers=n_layers)
+    rows = pack_tokens([[(7 * i + 3) % cfg.vocab_size for i in range(seq * 64)]], seq_len=seq)
+    seen, repeats = set(), 0  # (token, next token) pairs that recur across the steps' batches
+    for (toks, tgts), _ in zip(batches(rows, 1, seed=0), range(steps)):
+        pairs = set(zip(toks[0].tolist(), tgts[0].tolist()))
+        repeats += len(pairs & seen)
+        seen |= pairs
+    toks, tgts = (torch.from_numpy(a).to(dev) for a in next(batches(rows, 1, seed=0)))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends, starts = [], []  # each step's end, and the next one's start after on_step's work
+    per_step = []
+    for c in (*counters, *idle):
+        c.reset()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=steps - 1, warmup=0, active=1, repeat=1))
+
+    def on_step(n, loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        per_step.append({c.name: c.read() for c in counters})
+        prof.step()  # the profiler records the last step only
+        starts.append(time.perf_counter())
+
+    with _PlainCalls() as plain, prof:
+        starts.append(time.perf_counter())
+        params, state, losses = train_loop(cfg, params, rows, steps=steps, batch=1, lr=lr,
+                                           device=dev, on_step=on_step,
+                                           log=lambda s: print(f"phase 8b {s}"))
+    launches = {c.name: c.read() for c in (*counters, *idle)}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        first_after = loss_fn(params, toks, tgts, cfg).item()
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8b train: Llama-3-8B width, {n_layers} layers ({n_params / 1e9:.3f} B "
+          f"parameters), B=1, L={seq}, AdamW lr {lr:g}: losses per step "
+          f"{[round(x, 4) for x in losses]} ({repeats} of a step's (token, next token) pairs "
+          f"occur in an earlier step's batch); step 1's batch after step {steps}: "
+          f"{first_after:.4f} (was {losses[0]:.4f})")
+    check(all(np.isfinite(losses)) and np.isfinite(first_after), f"non-finite loss: {losses}")
+    check(first_after < losses[0], f"step 1's batch: loss {first_after} after training, "
+          f"{losses[0]} before")
+    prev = dict.fromkeys(per_step[0], 0)
+    for i, counts in enumerate(per_step):
+        step = {k: counts[k] - prev[k] for k in counts}
+        check(step == TRAIN_LAUNCHES_PER_STEP,
+              f"step {i + 1} launches {step}, expected {TRAIN_LAUNCHES_PER_STEP}")
+        prev = counts
+    check(all(launches[c.name] == 0 for c in idle),
+          f"a kernel off the training path launched: {launches}")
+    check(not plain.calls, f"plain versions called on the card: {plain.calls}")
+    step_ms = [1e3 * (b - a) for a, b in zip(starts, ends)]
+    med = statistics.median(step_ms[1:-1])
+    print(f"phase 8b launches per step (all {steps} steps): {TRAIN_LAUNCHES_PER_STEP}; "
+          f"none of {sorted(c.name for c in idle)}; no plain version called")
+    print(f"phase 8b time: step ms {[round(x, 1) for x in step_ms]} (step 1 includes the "
+          f"first-call set-up, step {steps} runs under the profiler); median of steps "
+          f"2-{steps - 1} {med:.1f} ms = {seq / (med / 1e3):.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]  # the step's span, not a kernel
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"phase 8b profile: step {steps} {step_ms[-1]:.1f} ms wall (profiled); device busy "
+          f"{busy:.1f} ms = {100 * busy / step_ms[-1]:.1f}% of it, {100 * busy / med:.1f}% of the "
+          "median unprofiled step; kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"phase 8b profile:   {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls "
+              f" {e.key[:90]}")
+    return launches
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -738,14 +1146,15 @@ def main():
     from nnop_tpu_torch.ops.attention_decode import decode_attention
     from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
+    from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
     from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
     from nnop_tpu_torch.ops.quantized_matmul import (
         quantized_matmul,
         quantized_matmul4,
         quantized_matmul_w8a8,
     )
-    from nnop_tpu_torch.ops.rms_norm import rms_norm
-    from nnop_tpu_torch.ops.rope import llama_rope
+    from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
+    from nnop_tpu_torch.ops.rope import llama_rope, llama_rope_bwd
 
     decode_src, flush_src = "nnop_tpu_torch/csrc/decode_attn.cu", "nnop_tpu_torch/csrc/kv_flush.cu"
     qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
@@ -787,6 +1196,18 @@ def main():
                                      f"{flush_rep}:529"),
         "write_kv_token": (Counter("write_kv_token", write_kv_token), "cuda", flush_src,
                            f"{flush_rep}:85"),
+        "rms_norm_rstd": (Counter("rms_norm_rstd", rms_norm_fwd), "triton",
+                          "nnop_tpu_torch/ops/rms_norm.py", "nnop_tpu/ops/rms_norm.py:120"),
+        "rms_norm_bwd": (Counter("rms_norm_bwd", rms_norm_bwd), "triton",
+                         "nnop_tpu_torch/ops/rms_norm.py", "nnop_tpu/ops/rms_norm.py:145"),
+        "llama_rope_bwd": (Counter("llama_rope_bwd", llama_rope_bwd), "triton",
+                           "nnop_tpu_torch/ops/rope.py", "nnop_tpu/ops/rope.py:102"),
+        "flash_bwd_dq": (Counter("flash_bwd_dq", flash_bwd_dq), "cuda",
+                         "nnop_tpu_torch/csrc/flash_bwd.cu",
+                         "nnop_tpu/ops/flash_attention_bwd.py:678"),
+        "flash_bwd_dkv": (Counter("flash_bwd_dkv", flash_bwd_dkv), "cuda",
+                          "nnop_tpu_torch/csrc/flash_bwd.cu",
+                          "nnop_tpu/ops/flash_attention_bwd.py:724"),
     }
     phase_device()
     phase_build()
@@ -864,6 +1285,13 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 8. training, on the memory the serving phases freed
+    phase_grad_parity()
+    train = counters(*TRAIN_LAUNCHES_PER_STEP)
+    counts = phase_train(train, [c for name, (c, *_) in entries.items()
+                                 if name not in TRAIN_LAUNCHES_PER_STEP])
+    launches.update({k: v for k, v in counts.items() if k not in launches})
 
     line = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],

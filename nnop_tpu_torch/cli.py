@@ -1,15 +1,26 @@
-"""Command-line entry points of the port: generate / serve on the dense
-configs, with floating-point weights or, with `--wbits 8|4`, int8 or
+"""Command-line entry points of the port: train / generate / serve on the
+dense configs, with floating-point weights or, with `--wbits 8|4`, int8 or
 packed int4 weights (quantized from the floating-point ones, as the JAX
 package's CLI does), and with `--int8-kv`, an int8 KV cache. Usage:
 
+    python -m nnop_tpu_torch.cli train --model tiny --device cpu --steps 50 --seq 128
     python -m nnop_tpu_torch.cli generate --model tiny --device cpu --prompt "abcabc"
     python -m nnop_tpu_torch.cli serve --model 8b --port 8080
     python -m nnop_tpu_torch.cli serve --model 8b --wbits 8 --int8-kv
     python -m nnop_tpu_torch.cli profile --model 8b --wbits 8 --int8-kv --batch 8
 
 Weights are random from `--seed` unless `--checkpoint` names an npz
-written by the JAX package's save_checkpoint.
+written by save_checkpoint (this package's or the JAX package's).
+
+`train` is the JAX CLI's single-device training (nnop_tpu/cli.py:cmd_train
+without --mesh, --fsdp and --remat, which need the mesh): AdamW on a
+loss whose gradients run through the backward kernels. `--model 8b`
+does not fit one 80 GB card at full depth, as it does not fit one chip
+without a mesh in JAX: 8.03 B parameters at 2 bytes (bf16 weight) + 2
+(bf16 gradient) + 8 (f32 AdamW moments) are 96 GB before any
+activation, so it ends in a CUDA out-of-memory error. Llama-3-8B at full
+width trains on one card with its depth cut (chip_smoke.py phase 8 runs
+train_loop with 8 layers).
 """
 
 from __future__ import annotations
@@ -22,16 +33,84 @@ import torch
 _CONFIGS = ("tiny", "8b")
 
 
+def _config(name):
+    from nnop_tpu_torch.models.llama import LlamaConfig
+
+    return {
+        "8b": LlamaConfig.llama3_8b,
+        "tiny": lambda: LlamaConfig.tiny(dtype=torch.float32),
+    }[name]()
+
+
+def train_loop(cfg, params, rows, *, steps: int, batch: int, lr, device, on_step=None,
+               log=print):
+    """Train `params` in place with AdamW(lr) for `steps` steps over the
+    packed rows (N, L+1), as the JAX CLI's loop does (nnop_tpu/cli.py:35-83):
+    epochs of `batches(rows, batch, seed=n)` with n the step count, one
+    loss, backward and update per batch. The params' leaves get
+    requires_grad. on_step(n, loss) runs after each step (loss a 0-d
+    tensor). Returns (params, optimizer state, the losses as floats)."""
+    from nnop_tpu_torch.models.llama import loss_fn
+    from nnop_tpu_torch.parallel.tp_llama import AdamW, tree_leaves
+    from nnop_tpu_torch.runtime.dataio import batches, prefetch_to_device
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    losses = []
+    n = 0
+    t0 = time.time()
+    while n < steps:
+        for toks, tgts in prefetch_to_device(batches(rows, batch, seed=n), device):
+            loss = loss_fn(params, toks, tgts, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            params, state = opt.update(grads, state, params)
+            del grads
+            n += 1
+            losses.append(loss.item())
+            if on_step is not None:
+                on_step(n, loss)
+            if n % 10 == 0 or n == steps:
+                log(f"step {n}: loss {losses[-1]:.4f} ({(time.time() - t0) / n:.2f} s/step)")
+            if n >= steps:
+                break
+    return params, state, losses
+
+
+def cmd_train(args):
+    from nnop_tpu_torch.models.llama import init_params
+    from nnop_tpu_torch.models.weights import save_checkpoint
+    from nnop_tpu_torch.runtime.dataio import pack_tokens
+
+    cfg = _config(args.model)
+    device = torch.device(args.device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = init_params(gen, cfg)
+    # synthetic corpus when no data file is given
+    if args.data:
+        import numpy as np
+
+        stream = list(np.fromfile(args.data, dtype=np.int32) % cfg.vocab_size)
+    else:
+        stream = [(7 * i + 3) % cfg.vocab_size for i in range(args.seq * 64)]
+    rows = pack_tokens([stream], seq_len=args.seq)
+    params, _, _ = train_loop(cfg, params, rows, steps=args.steps, batch=args.batch,
+                              lr=args.lr, device=device)
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, params)
+        print(f"saved {args.checkpoint}")
+
+
 def _build_engine(args, **engine_kw):
-    from nnop_tpu_torch.models.llama import LlamaConfig, init_params
+    from nnop_tpu_torch.models.llama import init_params
     from nnop_tpu_torch.models.weights import load_checkpoint
     from nnop_tpu_torch.runtime.engine import Engine
     from nnop_tpu_torch.runtime.tokenizer import BPETokenizer, VocabBPETokenizer
 
-    cfg = {
-        "8b": LlamaConfig.llama3_8b,
-        "tiny": lambda: LlamaConfig.tiny(dtype=torch.float32),
-    }[args.model]()
+    cfg = _config(args.model)
     device = torch.device(args.device)
     if args.checkpoint:
         params = load_checkpoint(args.checkpoint, device)
@@ -116,7 +195,7 @@ def _common(p):
     p.add_argument("--model", default="tiny", choices=_CONFIGS)
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--checkpoint", default=None, help="npz from the JAX package")
+    p.add_argument("--checkpoint", default=None, help="npz from save_checkpoint")
     p.add_argument("--wbits", type=int, default=16, choices=(4, 8, 16),
                    help="weight bits: 16 floating point, 8 int8, 4 packed int4")
     p.add_argument("--int8-kv", action="store_true", help="int8 KV cache")
@@ -125,6 +204,18 @@ def _common(p):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="nnop_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train")
+    t.add_argument("--model", default="tiny", choices=_CONFIGS)
+    t.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    t.add_argument("--steps", type=int, default=50)
+    t.add_argument("--batch", type=int, default=4)
+    t.add_argument("--seq", type=int, default=128)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--data", default=None, help="int32 token file")
+    t.add_argument("--checkpoint", default=None, help="npz to save the trained params to")
+    t.set_defaults(fn=cmd_train)
 
     g = sub.add_parser("generate")
     _common(g)

@@ -13,6 +13,12 @@ quantized products: models/quantized.py:qmatmul). `forward(..., plain=True)`
 runs the plain versions of the ops instead, the reference the kernels are
 held to on the card. `init_quantized_params` builds random int8 or int4
 weights directly, without a floating-point copy.
+
+`forward` and `loss_fn` are differentiable: training is functional, as in
+the JAX package, on a params tree whose leaves have `requires_grad_(True)`
+(cli.py:train_loop); the ops' autograd Functions run the backward kernels.
+Without a leaf that requires grad (the frozen `Llama`, the engine under
+its own `no_grad`) no graph is recorded.
 """
 
 from __future__ import annotations
@@ -342,7 +348,6 @@ def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False, matmul=_matmul):
     return x + _post(norm, layer, out, cfg, "mlp_post_norm")
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
             segment_ids=None, plain: bool = False, matmul=None):
     """Full forward pass: tokens (B, L) int -> logits (B, L, vocab) f32.
@@ -375,6 +380,16 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def loss_fn(params, tokens, targets, cfg: LlamaConfig, *, plain: bool = False):
+    """Next-token cross-entropy, the mean over all positions
+    (nnop_tpu/models/llama.py:loss_fn): tokens, targets (B, L) int ->
+    scalar f32. plain as in forward. MoE configs raise (not ported)."""
+    logits = forward(params, tokens, cfg, plain=plain)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 class Llama(nn.Module):

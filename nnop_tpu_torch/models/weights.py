@@ -53,6 +53,37 @@ def params_from_numpy(tree, device=None):
     return tensor_from_numpy(tree, device)
 
 
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy on the host. bf16 becomes the 2-byte void type that
+    npz holds for the JAX package's bf16 arrays (tensor_from_numpy reads
+    it back bit for bit); other dtypes convert as they are."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def save_checkpoint(path: str, params):
+    """Write a parameter tree as the JAX package's flat-key npz
+    (nnop_tpu/models/weights.py:save_checkpoint: keys like "layers/0/wq",
+    list indices as key parts), which its load_checkpoint and this
+    package's read."""
+    flat = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}{i}/")
+        else:
+            flat[prefix[:-1]] = tensor_to_numpy(tree)
+
+    walk(params, "")
+    np.savez(path, **flat)
+
+
 def load_checkpoint(path: str, device=None):
     """Load a flat-key npz checkpoint written by the JAX package
     (nnop_tpu.models.weights.save_checkpoint: keys like "layers/0/wq")

@@ -12,6 +12,14 @@ kpad_mask (B, KL) with True = valid. GQA: query head h reads KV head
 h // (QH // KH). The kernel takes bf16 and head dim 64 or 128; pair bias,
 segment ids, the sliding window and softcap are served only by the plain
 version (a CPU tensor) and raise NotImplementedError on CUDA.
+
+`flash_attention` is differentiable through a `torch.autograd.Function`
+(the JAX custom VJP, nnop_tpu/ops/flash_attention.py:1350-1379): its
+forward is kernel C, which saves q, k, v, o, lse and kpad_mask, and its
+backward the dQ and dK/dV kernels (ops/flash_attention_bwd.py). Pair,
+segment ids, the window and softcap have no backward yet: with them, a
+call that needs gradients raises NotImplementedError on any device.
+`flash_attention_chunked` stays forward-only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,10 +98,28 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
 flash_fwd.launches = 0
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kpad_mask, causal, scale):
+        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kpad_mask)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from nnop_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
+
+        q, k, v, o, lse, kpad_mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+                                         scale=ctx.scale, kpad_mask=kpad_mask)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
                     segment_ids=None, scale: float | None = None,
                     window: int | None = None, softcap: float | None = None):
-    """Multi-head attention with online softmax (forward only).
+    """Multi-head attention with online softmax, differentiable in q, k, v.
 
     q: (B, QH, QL, E); k, v: (B, KH, KL, E) with QH % KH == 0 (GQA/MQA).
     pair: optional additive bias (B, QH, QL, KL). causal: mask by absolute
@@ -119,6 +145,12 @@ def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
         softcap = float(softcap)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    features = (pair, segment_ids, window, softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if any(f is not None for f in features):
+            raise NotImplementedError(
+                "flash_attention: no backward for pair, segment_ids, window or softcap yet")
+        return _FlashAttention.apply(q, k, v, kpad_mask, causal, float(scale))
     o, _ = flash_fwd(q, k, v, causal=causal, scale=float(scale), kpad_mask=kpad_mask,
                      pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
     return o

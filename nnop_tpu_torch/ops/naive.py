@@ -27,12 +27,31 @@ from nnop_tpu_torch.ops.quantization import INT8_MAX, QTensor, QTensor4, div_exa
 MASK_VALUE = -1e30
 
 
-def naive_rms_norm(x, w, *, eps: float = 1e-6, offset: float = 0.0):
-    """RMS norm over the last axis, fp32 accumulation, (offset + w) scale."""
+def naive_rms_norm_fwd(x, w, *, eps: float = 1e-6, offset: float = 0.0):
+    """RMS norm over the last axis, fp32 accumulation, (offset + w) scale.
+    Returns (y in x.dtype, rstd (..., 1) f32), rstd = rsqrt(mean x^2 + eps)."""
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + eps) * (offset + w.float())
-    return y.to(x.dtype)
+    rstd = torch.rsqrt(ms + eps)
+    return (xf * rstd * (offset + w.float())).to(x.dtype), rstd
+
+
+def naive_rms_norm(x, w, *, eps: float = 1e-6, offset: float = 0.0):
+    """RMS norm over the last axis, fp32 accumulation, (offset + w) scale."""
+    return naive_rms_norm_fwd(x, w, eps=eps, offset=offset)[0]
+
+
+def naive_rms_norm_bwd(x, w, rstd, dy, offset: float = 0.0):
+    """The RMS norm backward (nnop_tpu/ops/rms_norm.py:52-93), f32
+    throughout: x, dy (n, e), rstd (n, 1) from the forward. With
+    x_hat = x * rstd and g = offset + w:
+      dx = rstd * (g * dy - x_hat * mean(g * dy * x_hat))   (in x.dtype)
+      dw = sum over rows of dy * x_hat                      (f32)"""
+    xhat = x.float() * rstd
+    dyf = dy.float()
+    gdy = (offset + w.float()) * dyf
+    c = torch.mean(gdy * xhat, dim=-1, keepdim=True)
+    return (rstd * (gdy - xhat * c)).to(x.dtype), (dyf * xhat).sum(dim=0)
 
 
 def rotate_half(x):
@@ -118,6 +137,47 @@ def naive_attention(
     if return_lse:
         return o.to(q.dtype), (m + torch.log(l))[..., 0]
     return o.to(q.dtype)
+
+
+def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None):
+    """The attention backward as explicit formulas
+    (nnop_tpu/ops/flash_attention_bwd.py:40-130 and :1067-1071), from the
+    forward's o and lse (B, QH, QL) in nats; layouts as naive_attention,
+    causal from row 0. With s = scale * q k^T recomputed under the
+    forward's mask:
+      delta = sum_e do * o;  P = exp(s - lse);  dP = do v^T
+      dS = P * (dP - delta);  dq = scale * dS k;  dk = scale * dS^T q
+      dv = P^T do
+    masked entries of P and dS exact zeros (a row with no visible key
+    gets zero gradients); P and dS rounded to the operand dtype before
+    their products, as the kernels do; dk and dv summed over each KV
+    head's group of query heads. Returns (dq, dk, dv) in q/k/v dtypes."""
+    B, QH, QL, E = q.shape
+    _, KH, KL, _ = k.shape
+    rep = QH // KH
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhqe,bhke->bhqk", qf, kf) * scale
+    mask = torch.ones((1, 1, QL, KL), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (torch.arange(QL, device=q.device)[:, None]
+                       >= torch.arange(KL, device=q.device)[None, :])
+    if kpad_mask is not None:
+        mask = mask & kpad_mask[:, None, None, :].bool()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bhqe,bhke->bhqk", dof, vf)
+    ds = torch.where(mask, p * (dp - delta), torch.zeros_like(s))
+    p_r, ds_r = p.to(v.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhke->bhqe", ds_r, kf) * scale
+    dk = torch.einsum("bhqk,bhqe->bhke", ds_r, qf) * scale
+    dv = torch.einsum("bhqk,bhqe->bhke", p_r, dof)
+
+    def group_sum(x):
+        return x.reshape(B, KH, rep, KL, E).sum(dim=2)
+
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
 
 
 def naive_decode_attention(

@@ -4,7 +4,10 @@
 Split-half convention (x1 = x[i], x2 = x[i + half]):
   out[i]        = x1 * cos - x2 * sin
   out[i + half] = x2 * cos + x1 * sin
-`sin_sign=-1` is the inverse rotation, which the backward will reuse.
+`sin_sign=-1` is the inverse rotation. `llama_rope` is differentiable
+through a `torch.autograd.Function` (the JAX custom VJP, :126-142):
+its backward is `llama_rope_bwd`, the same kernel with the sine negated
+(the rotation's transpose is its inverse), counted apart.
 
 Bound on the H100: device-memory bandwidth (a pure elementwise rotation:
 each q/k element is read and written once, plus the f32 cos/sin rows).
@@ -62,12 +65,10 @@ class RotaryEmbedding:
         return torch.cos(emb), torch.sin(emb)
 
 
-@torch.no_grad()
-def llama_rope(q, k, cos, sin, sin_sign: float = 1.0):
-    """Rotate q (B, QH, L, E) and k (B, KH, L, E) by cos/sin (B, L, E)
-    from `RotaryEmbedding`. Returns new (q, k) in their dtypes."""
+def _rotate(q, k, cos, sin, sin_sign: float):
+    """Launch B on q and on k; returns (new q, new k, launches)."""
     if q.device.type == "cpu":
-        return naive_rope(q, k, cos, sin, sin_sign)
+        return (*naive_rope(q, k, cos, sin, sin_sign), 0)
     B, _, L, E = q.shape
     if k.shape[0] != B or k.shape[2:] != (L, E) or cos.shape != (B, L, E):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -82,16 +83,51 @@ def llama_rope(q, k, cos, sin, sin_sign: float = 1.0):
     check_cuda_operand("cos", cos, (torch.float32,), device=q.device)
     check_cuda_operand("sin", sin, (torch.float32,), device=q.device)
     kernel = _kernel()
-    outs = []
+    outs, n = [], 0
     for x in (q, k):
         y = torch.empty_like(x)
         n_rows = x.numel() // E
         if n_rows:
             kernel[(n_rows,)](x, cos, sin, y, x.shape[1], L, float(sin_sign),
                               HALF=E // 2, num_warps=1)
-            llama_rope.launches += 1
+            n += 1
         outs.append(y)
-    return outs[0], outs[1]
+    return outs[0], outs[1], n
+
+
+def llama_rope_bwd(dq, dk, cos, sin, sin_sign: float = 1.0):
+    """The backward of llama_rope(..., sin_sign): kernel B with the sine
+    negated, on the output gradients dq (B, QH, L, E), dk (B, KH, L, E)."""
+    dq_in, dk_in, n = _rotate(dq.contiguous(), dk.contiguous(), cos, sin, -sin_sign)
+    llama_rope_bwd.launches += n
+    return dq_in, dk_in
+
+
+llama_rope_bwd.launches = 0
+
+
+class _LlamaRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, sin_sign):
+        ctx.save_for_backward(cos, sin)
+        ctx.sin_sign = sin_sign
+        return llama_rope(q, k, cos, sin, sin_sign)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        cos, sin = ctx.saved_tensors
+        return (*llama_rope_bwd(dq, dk, cos, sin, ctx.sin_sign), None, None, None)
+
+
+def llama_rope(q, k, cos, sin, sin_sign: float = 1.0):
+    """Rotate q (B, QH, L, E) and k (B, KH, L, E) by cos/sin (B, L, E)
+    from `RotaryEmbedding`. Returns new (q, k) in their dtypes;
+    differentiable in q and k."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        return _LlamaRope.apply(q, k, cos, sin, sin_sign)
+    qo, ko, n = _rotate(q, k, cos, sin, sin_sign)
+    llama_rope.launches += n
+    return qo, ko
 
 
 llama_rope.launches = 0

@@ -11,7 +11,10 @@ on the card's machine:
 <= 1.6e-2, and both sides accumulate in fp32 in another order), scaled
 by max(1, max|plain|) for the quantized products (bf16 sums over K in
 another order); the flushes (also the int8 and paged ones), the one-token
-write and the W8A8 product with f32 output must be bit-exact.
+write and the W8A8 product with f32 output must be bit-exact. The
+training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV) are held
+to the plain forward and backward formulas of ops/naive.py, and the
+attention backward must give the same bits on two runs.
 """
 
 import pytest
@@ -20,7 +23,12 @@ import torch
 from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.ops.attention_decode import decode_attention
 from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
-from nnop_tpu_torch.ops.flash_attention import flash_fwd
+from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
+from nnop_tpu_torch.ops.flash_attention_bwd import (
+    flash_attention_bwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+)
 from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
 from nnop_tpu_torch.ops.quantization import quantize, quantize4
 from nnop_tpu_torch.ops.quantized_matmul import (
@@ -29,8 +37,8 @@ from nnop_tpu_torch.ops.quantized_matmul import (
     quantized_matmul4,
     quantized_matmul_w8a8,
 )
-from nnop_tpu_torch.ops.rms_norm import rms_norm
-from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
+from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
+from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope, llama_rope_bwd
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=0)
@@ -202,6 +210,21 @@ def _close_scaled(got, want):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _tile_rel_err(got, want, tile=64):
+    """The largest |got - want| / |want| (Frobenius norms) over the 64-row
+    tiles of each (batch, head): each tile against its own scale, so the
+    deep rows and keys, whose gradients are small, are held as tightly as
+    the first. A tile whose reference is zero must be zero."""
+    def tiles(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, -t.shape[2] % tile))
+        return t.reshape(*t.shape[:2], -1, tile * t.shape[3])
+
+    dn = tiles(got.float() - want.float()).norm(dim=-1)
+    rn = tiles(want.float()).norm(dim=-1)
+    assert not (dn[rn == 0] > 0).any()
+    return (dn[rn > 0] / rn[rn > 0]).max().item()
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (300, 1024, 640), (100, 300, 200)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn], ids=["int8", "fp8"])
 def test_quantized_matmul_kernel(gen, M, K, N, dtype):
@@ -229,3 +252,87 @@ def test_quantized_matmul_w8a8_kernel(gen, M, K, N):
     assert torch.equal(got, naive.naive_quantized_matmul_w8a8(xv, xs, w, torch.float32))
     got = quantized_matmul_w8a8((xv, xs), w)
     _close_scaled(got, naive.naive_quantized_matmul_w8a8(xv, xs, w))
+
+
+# ---- training: A with rstd, A-bwd, B backward, dQ and dK/dV -------------
+
+
+@pytest.mark.parametrize("rows,offset", [(257, 0.0), (1024, 1.0)])
+def test_rms_norm_bwd_kernel(gen, rows, offset):
+    """A with the rstd store and A-bwd against the plain forward and
+    backward; rstd is f32 (1e-5 relative: the same f32 mean of squares
+    summed in another order); dw is an f32 sum over the rows."""
+    x, w = _bf(gen, rows, 4096), _bf(gen, 4096, scale=0.1) + 0.5
+    dy = _bf(gen, rows, 4096)
+    y, rstd = rms_norm_fwd(x, w, 1e-5, offset)
+    y_ref, rstd_ref = naive.naive_rms_norm_fwd(x, w, eps=1e-5, offset=offset)
+    torch.testing.assert_close(y, y_ref, **TOL)
+    torch.testing.assert_close(rstd, rstd_ref, atol=0, rtol=1e-5)
+    before = rms_norm_bwd.launches
+    dx, dw = rms_norm_bwd(x, w, rstd, dy, offset)
+    assert rms_norm_bwd.launches == before + 1 and dx.dtype == torch.bfloat16
+    dx_ref, dw_ref = naive.naive_rms_norm_bwd(x, w, rstd, dy, offset)
+    torch.testing.assert_close(dx, dx_ref, **TOL)
+    # the same f32 products summed over up to 1024 rows in another order
+    assert ((dw - dw_ref).norm() / dw_ref.norm()).item() <= 1e-5
+    # autograd through the public rms_norm runs the same two kernels
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    fwd0, bwd0 = rms_norm_fwd.launches, rms_norm_bwd.launches
+    gx, gw = torch.autograd.grad(rms_norm(xg, wg, 1e-5, offset=offset), (xg, wg), dy)
+    assert (rms_norm_fwd.launches, rms_norm_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert torch.equal(gx, dx) and gw.dtype == torch.bfloat16
+
+
+def test_rope_bwd_kernel(gen):
+    dq, dk = _bf(gen, 2, 32, 9, 128, scale=0.5), _bf(gen, 2, 8, 9, 128, scale=0.5)
+    cos, sin = RotaryEmbedding(128, 500000.0)(torch.arange(18, device="cuda").view(2, 9))
+    before = llama_rope_bwd.launches
+    got = llama_rope_bwd(dq, dk, cos, sin)
+    assert llama_rope_bwd.launches == before + 2
+    for g, want in zip(got, naive.naive_rope(dq, dk, cos, sin, -1.0)):
+        torch.testing.assert_close(g, want, **TOL)
+
+
+# (causal, QH, KH, QL, KL, E, kpad): ragged lengths, GQA, E 64 and 128, a
+# kpad that hides the first keys (under causal, rows with no visible key)
+BWD_CASES = [
+    (True, 32, 8, 256, 256, 128, False),
+    (True, 8, 2, 200, 200, 64, True),
+    (False, 8, 2, 100, 300, 128, True),
+    (False, 4, 4, 65, 130, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels(gen, case):
+    """dQ and dK/dV against the plain backward, from kernel C's o and
+    lse; each 64-row query or key tile of each head within 1e-2 relative
+    error (bf16 rounding of the outputs, and of P and dS where the fp32
+    sums before them differ in order: chip_smoke.py phase 3 reads at most
+    1.1e-3 on an H100 80GB HBM3 at 700 W, and planted faults at least
+    0.12); two runs are bit-identical (no atomics)."""
+    causal, QH, KH, QL, KL, E, kpad = case
+    q, k, v = _bf(gen, 2, QH, QL, E), _bf(gen, 2, KH, KL, E), _bf(gen, 2, KH, KL, E)
+    do = _bf(gen, 2, QH, QL, E)
+    mask = None
+    if kpad:
+        mask = torch.ones((2, KL), dtype=torch.bool, device="cuda")
+        mask[1, :7] = False
+    kw = dict(causal=causal, scale=E ** -0.5, kpad_mask=mask)
+    o, lse = flash_fwd(q, k, v, **kw)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for g, want in zip(got, naive.naive_attention_bwd(q, k, v, o, lse, do, **kw)):
+        assert g.dtype == torch.bfloat16
+        assert _tile_rel_err(g, want) <= 1e-2
+    if kpad and causal:
+        assert (got[0][1, :, :7] == 0).all()  # rows that see no key
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # autograd through flash_attention runs C, then dQ and dK/dV
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, kpad_mask=mask)
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, b) for a, b in
+               zip(torch.autograd.grad(out, leaves, do), got))
