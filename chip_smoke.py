@@ -1,4 +1,5 @@
-"""Drive the port's Llama-3-8B serving paths once on one H100.
+"""Drive the port's serving and training paths once on one H100:
+Llama-3-8B and Mixtral-8x7B.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,8 @@ non-zero:
      inputs, both timed by CUDA events, with one PyTorch library call that
      computes the same function timed beside it where there is one. The
      paged modes of D and E run at the paged deployment's shapes (phase 7),
-     and E's one-token write beside them.
+     and E's one-token write beside them; kernel I's four modes at
+     Mixtral's decode and prefill shapes (phase 9).
   4. bf16 path: Llama-3-8B at full width and depth (random bf16 weights
      from a seeded torch.Generator on the card) behind the port's
      EngineServer; 4 concurrent /v1/completions requests (one through
@@ -30,6 +32,17 @@ non-zero:
      concurrent requests of 512 prompt tokens, half of them repeating the
      first 384 tokens (3 pages) of another; prefix hits, page accounting,
      and no launch of the linear decode attention or flush.
+  9. Mixtral-8x7B (LlamaConfig.mixtral_8x7b) at full width behind
+     EngineServer, greedy, prompts of phase 4's lengths from its vocabulary:
+     (a) full depth, random int8 projections and experts, the engine's
+     fused tree built in place, Engine(quantized_kv=True, w8a8=True), 4
+     requests: W8A8 grouped products at prefill (Tp >= 1024), weight-only
+     grouped products at decode, peak memory; (b) 12 layers (93 GB of bf16
+     weights at full depth do not fit one card): bf16 weights and cache, 4
+     requests (the bf16 grouped product), then the same weights as packed
+     int4 with the int8 cache, 2 requests. First-token cosine ≥ 0.99 against
+     the plain forward, and the share of expert assignments in which the
+     two paths differ. Runs after 6, before training.
   8. training, after the serving phases: (a) gradient parity at full
      width, Llama-3-8B with 2 layers, B=1, L=2048: loss_fn and every
      gradient leaf through the kernels against the plain ops on the card;
@@ -40,8 +53,9 @@ non-zero:
      counts of every step, no plain version called; ms per step, tokens/s,
      peak memory and a torch.profiler breakdown of the last step.
 Each serving phase (and phase 8b) sets the launch counts to 0 just before
-it runs and reads them just after. The second-to-last line is
-{"kernels": [...]}, the last line {"ok": true, "device": {...}}.
+it runs and reads them just after. The seconds of each phase are printed
+before the last two lines: {"kernels": [...]}, then {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -342,6 +356,7 @@ def phase_kernels():
 
     phase_paged_kernels(p3, gen, randn)
     phase_products(p3, gen, randn)
+    phase_grouped(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
     return p3.results
 
@@ -754,6 +769,175 @@ def phase_products(p3, gen, randn):
     torch.cuda.empty_cache()
 
 
+MIXTRAL = dict(d=4096, hidden=14336, E=8, k=2)
+
+
+def _routed_rows(gen, T, k, E, d, bm=None, idx=None):
+    """x (Tp, d) bf16 in the MoE layer's sorted layout (padding rows zero)
+    for T random tokens routed top-k by random logits (or by `idx`), with
+    the layer's block_m policy; returns (x, block_groups, block_rows,
+    block_m, the expert offsets for torch._grouped_mm, the experts hit)."""
+    from nnop_tpu_torch.models.moe import _block_m, sort_tokens_by_expert
+
+    if idx is None:
+        idx = torch.topk(torch.randn((T, E), generator=gen, device="cuda"), k, dim=-1).indices
+    bm = bm or _block_m(T, idx.shape[1], E)
+    src, dest, groups, Tp, _, rows = sort_tokens_by_expert(idx, E, bm)
+    h = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    x = h.new_zeros((Tp, d)).index_copy(0, dest, h[src])
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    offs = torch.cumsum((counts + bm - 1) // bm * bm, 0).to(torch.int32)
+    return x, groups, rows, bm, offs, int((counts > 0).sum())
+
+
+def _grouped_mm_ms(name, x, wb, offs):
+    """torch._grouped_mm over the same sorted rows and (bf16) experts: the
+    yardstick for kernel I (rows past the last expert's are left out). Its
+    weight operand must be column-major on some torch builds: that layout
+    is tried when the plain one is refused."""
+    try:
+        torch._grouped_mm(x, wb, offs=offs)
+    except Exception:  # noqa: BLE001 - the yardstick is optional; try the other layout
+        wb = wb.transpose(1, 2).contiguous().transpose(1, 2)
+    return library_ms(name, lambda: torch._grouped_mm(x, wb, offs=offs))
+
+
+def phase_grouped(p3, gen, randn):
+    """Kernel I's four modes at Mixtral's shapes (d 4096, hidden 14336, E 8,
+    top 2): decode (8 tokens, block_m 32, Tp 288) through w_gateup (8, 4096,
+    28672) and w_down (8, 14336, 4096), prefill (512 tokens, block_m 128,
+    Tp 2048), and edge cases: an expert with no token, every token on one
+    expert, W8A8 into f32 bit-exact."""
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.grouped_matmul import (
+        _grouped_matmul_q4,
+        grouped_matmul,
+        grouped_matmul_quantized,
+        grouped_matmul_w8a8,
+    )
+    from nnop_tpu_torch.ops.quantization import QTensor, QTensor4
+    from nnop_tpu_torch.ops.quantized_matmul import quantize_act
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    d, hidden, E, k = (MIXTRAL[n] for n in ("d", "hidden", "E", "k"))
+    shapes = {"w_gateup": (d, 2 * hidden), "w_down": (hidden, d)}
+
+    def tol(ref):
+        return BF16_TOL * max(1.0, ref.float().abs().max().item())
+
+    def experts(K, N, mode):
+        if mode == "bf16":
+            return randn(E, K, N, scale=K ** -0.5)
+        if mode == "int4":
+            packed = torch.randint(-128, 128, (E, K // 2, N), generator=gen, device=dev,
+                                   dtype=torch.int8)
+            return QTensor4(packed, torch.full((E, K // 128, N), K ** -0.5 / 4.1, device=dev),
+                            128, 1024)
+        vals = torch.randint(-127, 128, (E, K, N), generator=gen, device=dev, dtype=torch.int8)
+        return QTensor(vals, torch.full((E, N), K ** -0.5 / 74.0, device=dev), 1)
+
+    def dequantized(w):  # the yardstick's bf16 experts
+        if isinstance(w, QTensor):
+            return (w.values.float() * w.scale[:, None]).to(bf)
+        if isinstance(w, QTensor4):
+            return torch.stack([naive.unpack4(QTensor4(p, s, w.group, w.pack_block)).float()
+                                .mul_(s.repeat_interleave(w.group, dim=0)).to(bf)
+                                for p, s in zip(w.packed, w.scale)])
+        return w
+
+    def run(mode, x, w, bg, rows, bm, out_dtype=None):
+        """(kernel call, plain call) for one mode."""
+        if mode == "bf16":
+            return (lambda: grouped_matmul(x, w, bg, block_m=bm, block_rows=rows),
+                    lambda: naive.naive_grouped_matmul(x, w, bg, bm))
+        if mode == "int8":
+            return (lambda: grouped_matmul_quantized(x, w, bg, block_m=bm, block_rows=rows),
+                    lambda: naive.naive_grouped_matmul_quantized(x, w, bg, bm))
+        if mode == "int4":
+            return (lambda: _grouped_matmul_q4(x, w, bg, block_m=bm, block_rows=rows),
+                    lambda: naive.naive_grouped_matmul4(x, w, bg, bm))
+        xv, xs = x
+        return (lambda: grouped_matmul_w8a8((xv, xs), w, bg, block_m=bm, block_rows=rows,
+                                            out_dtype=out_dtype),
+                lambda: naive.naive_grouped_matmul_w8a8(xv, xs, w, bg, bm,
+                                                        out_dtype or torch.bfloat16))
+
+    names = {"bf16": "grouped_matmul", "int8": "grouped_matmul_quantized",
+             "w8a8": "grouped_matmul_w8a8", "int4": "grouped_matmul4"}
+    decode = _routed_rows(gen, 8, k, E, d)
+    prefill = _routed_rows(gen, 512, k, E, d)
+    check(decode[0].shape[0] == 288 and decode[3] == 32, f"decode Tp {decode[0].shape[0]}")
+    check(prefill[0].shape[0] == 2048 and prefill[3] == 128, f"prefill Tp {prefill[0].shape[0]}")
+    for mode in ("bf16", "int8", "int4", "w8a8"):
+        # W8A8 runs at prefill only (Tp >= 1024); the others at decode and prefill
+        for tag, (x, bg, rows, bm, offs, hit) in (() if mode == "w8a8" else
+                                                  (("decode", decode),)) + (("prefill", prefill),):
+            T = 8 if tag == "decode" else 512
+            for what, (K, N) in shapes.items():
+                xin = x if K == d else randn(x.shape[0], K) * (rows_mask(rows, bm)[:, None])
+                w = experts(K, N, "int8" if mode == "w8a8" else mode)
+                if mode == "w8a8":
+                    xin = quantize_act(xin)
+                kern, plain = run(mode, xin, w, bg, rows, bm)
+                got, ref = kern(), plain()
+                main = what == "w_gateup" and tag == ("prefill" if mode == "w8a8" else "decode")
+                # each expert hit streams its weights and scales once; the
+                # real rows are read once and written once
+                wbytes = {"bf16": 2 * K * N, "int8": K * N + 4 * N, "w8a8": K * N + 4 * N,
+                          "int4": K * N // 2 + 4 * (K // 128) * N}[mode]
+                real = T * k
+                xbytes = K + 4 if mode == "w8a8" else 2 * K
+                bnd = bound(hit * wbytes + real * (xbytes + 2 * N), 2 * real * K * N,
+                            "int8" if mode == "w8a8" else "bf16")
+                lib = None
+                if main:  # on the same bf16 rows, with bf16 (dequantized) experts
+                    lib = _grouped_mm_ms(names[mode], x, dequantized(w), offs)
+                    if mode == "w8a8":  # bit-exact with f32 output
+                        kf, pf = run(mode, xin, w, bg, rows, bm, torch.float32)
+                        exact, exact_ref = kf(), pf()
+                        check(torch.equal(exact, exact_ref),
+                              "grouped W8A8 with f32 output is not exact")
+                        p3.report(names[mode], f"prefill {what} f32 output",
+                                  max_err(exact, exact_ref), 0.0,
+                                  "exact int32 sums, the same f32 epilogue: bit-exact")
+                p3.report(names[mode], f"{tag}: {T} tokens, Tp {x.shape[0]}, block_m {bm}, "
+                          f"{hit} experts hit, {what} ({E}, {K}, {N}) {mode}",
+                          max_err(got, ref), tol(ref), QMM_TOL_WHY, device_ms(kern),
+                          device_ms(plain, n=3), bnd, lib, main)
+                del w, got, ref, xin
+            torch.cuda.empty_cache()
+
+    # edge cases at (4096, 4096): expert 3 gets no token (and expert 7, the
+    # clipped trailing blocks' expert, none either); all 512 tokens on expert 5
+    no3 = torch.tensor([[0, 1], [1, 2], [2, 0], [4, 5], [5, 6], [6, 4], [0, 2], [1, 4]],
+                       device=dev)
+    one = torch.full((512, 1), 5, device=dev)
+    for case, (x, bg, rows, bm, _, hit) in (("experts 3 and 7 without a token",
+                                             _routed_rows(gen, 8, k, E, d, idx=no3)),
+                                            ("all 512 tokens on expert 5",
+                                             _routed_rows(gen, 512, 1, E, d, idx=one))):
+        for mode in ("bf16", "int8", "int4", "w8a8"):
+            w = experts(d, d, "int8" if mode == "w8a8" else mode)
+            xin = quantize_act(x) if mode == "w8a8" else x
+            kern, plain = run(mode, xin, w, bg, rows, bm, torch.float32 if mode == "w8a8" else
+                              None)
+            got, ref = kern(), plain()
+            if mode == "w8a8":
+                check(torch.equal(got, ref), f"grouped W8A8 [{case}] with f32 output not exact")
+            p3.report(names[mode], f"{case}: Tp {x.shape[0]}, block_m {bm}, (8, 4096, 4096) "
+                      f"{mode}", max_err(got, ref), 0.0 if mode == "w8a8" else tol(ref),
+                      "bit-exact" if mode == "w8a8" else QMM_TOL_WHY)
+            del w, got, ref
+    torch.cuda.empty_cache()
+
+
+def rows_mask(rows, bm):
+    """(Tp,) 1 for a block's real rows, 0 for its padding (bf16)."""
+    return (torch.arange(bm, device=rows.device)[None] < rows[:, None]).reshape(-1).to(
+        torch.bfloat16)
+
+
 def _int4pack_ms(x, w):
     """torch._weight_int4pack_mm on the same int4 weights, repacked into
     its tiled layout (unsigned nibbles q + 8, even K in the high nibble; it
@@ -813,13 +997,36 @@ def first_logits(eng, prompt, n_match=0):
     return logits[0, (n - 1) - (sbuf // C - 1) * C]
 
 
+class _Routes:
+    """Within the block, the expert ids of every router call
+    (models/moe.py:router_topk), in call order."""
+
+    def __enter__(self):
+        import nnop_tpu_torch.models.moe as moe
+
+        self.mod, self.fn, self.calls = moe, moe.router_topk, []
+
+        def record(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.calls.append(out[1])
+            return out
+
+        moe.router_topk = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_topk = self.fn
+
+
 def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul=None,
-                    idle=(), after=None, max_tokens=32):
+                    idle=(), after=None, max_tokens=32, forward_kw=None):
     """Serve `prompts` concurrently through EngineServer on an engine over
     `params` built with `engine_kw`, check every answer, that each of
     `counters` launched and each of `idle` did not, `after(eng, stats)`,
-    and the engine's first-token logits against the plain forward for
-    each (index into prompts, n_match) of `refs`. Returns the counts."""
+    and the engine's first-token logits against the plain forward (with
+    `forward_kw`) for each (index into prompts, n_match) of `refs`; for a
+    MoE model, the share of (token, slot) expert assignments in which the
+    two differ (prompts of one prefill pass). Returns the counts."""
     from nnop_tpu_torch.models.llama import forward
     from nnop_tpu_torch.runtime.engine import Engine
     from nnop_tpu_torch.runtime.server import EngineServer
@@ -883,15 +1090,26 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul
     @torch.no_grad()
     def plain(toks):
         return forward(params, torch.tensor([toks], device=dev), cfg, plain=True,
-                       matmul=matmul)[0, -1]
+                       matmul=matmul, **(forward_kw or {}))[0, -1]
 
     for i, n_match in refs:
-        got, want = first_logits(eng, prompts[i], n_match), plain(prompts[i])
+        with _Routes() as on_kernels:
+            got = first_logits(eng, prompts[i], n_match)
+        with _Routes() as on_plain:
+            want = plain(prompts[i])
         cos = _cosine(got, want)
         how = f"prefix hit of {n_match} tokens" if n_match else "no prefix hit"
-        print(f"{tag} reference: prompt {i} ({lens[i]} tokens, {how}): first-token logits "
+        routes = ""
+        n = lens[i]
+        if on_plain.calls and len(on_kernels.calls) == len(on_plain.calls):
+            flips = sum(int((a[:n].sort(-1).values != b.sort(-1).values).sum())
+                        for a, b in zip(on_kernels.calls, on_plain.calls))
+            total = n * cfg.n_experts_per_token * cfg.n_layers
+            routes = (f"; {flips} of {total} (token, slot) expert assignments differ "
+                      f"({100 * flips / total:.3f}%, information only)")
+        print(f"{tag} reference: prompt {i} ({n} tokens, {how}): first-token logits "
               f"cosine {cos:.6f} (>= 0.99 required), argmax engine {int(got.argmax())} "
-              f"plain {int(want.argmax())}")
+              f"plain {int(want.argmax())}{routes}")
         check(cos >= 0.99, f"{tag} prompt {i}: cosine {cos}")
         check(bool(torch.isfinite(got).all()), "non-finite logits")
 
@@ -1142,11 +1360,17 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from nnop_tpu_torch.models.llama import LlamaConfig, init_params, init_quantized_params
-    from nnop_tpu_torch.models.quantized import qmatmul
+    from nnop_tpu_torch.models.quantized import qmatmul, quantize_params
     from nnop_tpu_torch.ops.attention_decode import decode_attention
     from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
     from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
+    from nnop_tpu_torch.ops.grouped_matmul import (
+        _grouped_matmul_q4,
+        grouped_matmul,
+        grouped_matmul_quantized,
+        grouped_matmul_w8a8,
+    )
     from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
     from nnop_tpu_torch.ops.quantized_matmul import (
         quantized_matmul,
@@ -1155,10 +1379,12 @@ def main():
     )
     from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
     from nnop_tpu_torch.ops.rope import llama_rope, llama_rope_bwd
+    from nnop_tpu_torch.runtime.engine import fuse_decode_weights
 
     decode_src, flush_src = "nnop_tpu_torch/csrc/decode_attn.cu", "nnop_tpu_torch/csrc/kv_flush.cu"
     qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
     paged_rep, flush_rep = "nnop_tpu/ops/attention_decode_paged.py:430", "nnop_tpu/ops/kv_write.py"
+    gmm_src, gmm_rep = "nnop_tpu_torch/csrc/gmm.cu", "nnop_tpu/ops/grouped_matmul.py"
     # entry name -> (counter, route, source, the TPU kernel it replaces);
     # a bf16 entry of a kernel with an int8 mode counts the bf16 launches
     entries = {
@@ -1208,11 +1434,29 @@ def main():
         "flash_bwd_dkv": (Counter("flash_bwd_dkv", flash_bwd_dkv), "cuda",
                           "nnop_tpu_torch/csrc/flash_bwd.cu",
                           "nnop_tpu/ops/flash_attention_bwd.py:724"),
+        "grouped_matmul": (Counter("grouped_matmul", grouped_matmul), "cuda", gmm_src,
+                           f"{gmm_rep}:111"),
+        "grouped_matmul_quantized": (Counter("grouped_matmul_quantized",
+                                             grouped_matmul_quantized), "cuda", gmm_src,
+                                     f"{gmm_rep}:323"),
+        "grouped_matmul_w8a8": (Counter("grouped_matmul_w8a8", grouped_matmul_w8a8), "cuda",
+                                gmm_src, f"{gmm_rep}:425"),
+        "grouped_matmul4": (Counter("grouped_matmul4", _grouped_matmul_q4), "cuda", gmm_src,
+                            f"{gmm_rep}:524"),
     }
+    seconds, t_start = {}, [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - t_start[0], 1)
+        t_start[0] = now
+
     phase_device()
     phase_build()
+    done("1-2")
     measured = phase_kernels()
     torch.cuda.empty_cache()
+    done("3")
 
     dev = torch.device("cuda")
     cfg = LlamaConfig.llama3_8b()
@@ -1237,6 +1481,7 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    done("4")
 
     # 5. int8 weights (W8A8 prefill, weight-only decode), int8 cache
     gen.manual_seed(SEED)
@@ -1252,6 +1497,7 @@ def main():
         dict(linear, quantized_kv=True, w8a8=True), prompts, [(1, 0), (3, 0)],
         matmul=w8a8_plain)
     launches.update({k: v for k, v in counts.items() if k not in launches})
+    done("5")
 
     # 7. the paged deployment (scripts/bench_engine.py --paged) on the same
     #    int8 weights: 32 requests of 512 tokens; requests 16-31 repeat the
@@ -1273,6 +1519,7 @@ def main():
     del params, head
     gc.collect()
     torch.cuda.empty_cache()
+    done("7")
 
     # 6. int4 weights, int8 cache: the 280- and 1100-token prompts
     gen.manual_seed(SEED)
@@ -1285,6 +1532,61 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    done("6")
+
+    # 9. Mixtral-8x7B at full width: phase 4's prompt lengths from its
+    #    vocabulary of 32000; the engine's fused tree built in place, so no
+    #    unfused copy of the experts is held
+    mix_prompts = [rng.integers(0, 32000, n).tolist() for n in (150, 280, 400, 1100)]
+    moe_counters = ("rms_norm", "llama_rope", "flash_fwd")
+    # 9a. full depth, int8 projections and experts, W8A8 prefill, int8 cache
+    mcfg = LlamaConfig.mixtral_8x7b()
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = fuse_decode_weights(init_quantized_params(gen, mcfg, wbits=8), in_place=True)
+    head = params["lm_head"]
+    print(f"phase 9a setup: Mixtral-8x7B, {mcfg.n_layers} layers, int8 weights (experts "
+          f"(8, 4096, 28672) | (8, 14336, 4096), per-(E, N) scales): "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    counts = serve_and_check("phase 9a", params, mcfg, counters(
+        *moe_counters, "decode_attention_int8", "flush_staging_int8", "quantized_matmul",
+        "quantized_matmul_w8a8", "grouped_matmul_quantized", "grouped_matmul_w8a8"),
+        dict(linear, quantized_kv=True, w8a8=True), mix_prompts, [(1, 0), (3, 0)],
+        matmul=lambda x, w: qmatmul(x, w, plain=True, w8a8=w is not head),
+        forward_kw=dict(w8a8=True))
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+    print(f"phase 9a memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    del params, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("9a")
+
+    # 9b. 12 layers (93 GB of bf16 weights at full depth do not fit), bf16
+    #     weights and cache; then the same weights as int4 with the int8 cache
+    mcfg = LlamaConfig.mixtral_8x7b(n_layers=12)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = fuse_decode_weights(init_params(gen, mcfg), in_place=True)
+    counts = serve_and_check("phase 9b", params, mcfg, counters(
+        *moe_counters, "decode_attention", "flush_staging", "grouped_matmul"), linear,
+        mix_prompts, [(1, 0), (3, 0)])
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+    params = quantize_params(params, wbits=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = serve_and_check("phase 9b int4", params, mcfg, counters(
+        *moe_counters, "decode_attention_int8", "flush_staging_int8", "quantized_matmul4",
+        "grouped_matmul4"), dict(linear, quantized_kv=True), mix_prompts[1::2],
+        [(0, 0), (1, 0)], matmul=functools.partial(qmatmul, plain=True))
+    launches.update({k: v for k, v in counts.items() if k not in launches})
+    print(f"phase 9b memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("9b")
 
     # 8. training, on the memory the serving phases freed
     phase_grad_parity()
@@ -1292,6 +1594,8 @@ def main():
     counts = phase_train(train, [c for name, (c, *_) in entries.items()
                                  if name not in TRAIN_LAUNCHES_PER_STEP])
     launches.update({k: v for k, v in counts.items() if k not in launches})
+    done("8")
+    print(f"phase seconds: {seconds}; total {sum(seconds.values()):.1f}")
 
     line = {"kernels": [
         dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],

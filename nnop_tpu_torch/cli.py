@@ -1,16 +1,22 @@
-"""Command-line entry points of the port: train / generate / serve on the
-dense configs, with floating-point weights or, with `--wbits 8|4`, int8 or
-packed int4 weights (quantized from the floating-point ones, as the JAX
-package's CLI does), and with `--int8-kv`, an int8 KV cache. Usage:
+"""Command-line entry points of the port: train on the dense configs;
+generate / serve / profile on the dense and the MoE configs (`tiny_moe`,
+`mixtral`), with floating-point weights or, with `--wbits 8|4`, int8 or
+packed int4 weights, and with `--int8-kv`, an int8 KV cache. Usage:
 
     python -m nnop_tpu_torch.cli train --model tiny --device cpu --steps 50 --seq 128
     python -m nnop_tpu_torch.cli generate --model tiny --device cpu --prompt "abcabc"
     python -m nnop_tpu_torch.cli serve --model 8b --port 8080
     python -m nnop_tpu_torch.cli serve --model 8b --wbits 8 --int8-kv
+    python -m nnop_tpu_torch.cli serve --model mixtral --wbits 8 --int8-kv
     python -m nnop_tpu_torch.cli profile --model 8b --wbits 8 --int8-kv --batch 8
 
 Weights are random from `--seed` unless `--checkpoint` names an npz
-written by save_checkpoint (this package's or the JAX package's).
+written by save_checkpoint (this package's or the JAX package's). A
+checkpoint is quantized after loading, as the JAX package's CLI does;
+random quantized weights are drawn quantized (init_quantized_params: a
+MoE layer's experts int8 whatever --wbits is), so that a model whose
+floating-point weights do not fit one card is served from its int8
+weights: Mixtral-8x7B takes 93 GB in bf16, 47 GB with `--wbits 8`.
 
 `train` is the JAX CLI's single-device training (nnop_tpu/cli.py:cmd_train
 without --mesh, --fsdp and --remat, which need the mesh): AdamW on a
@@ -30,7 +36,8 @@ import time
 
 import torch
 
-_CONFIGS = ("tiny", "8b")
+_CONFIGS = ("tiny", "tiny_moe", "8b", "mixtral")
+_TRAIN_CONFIGS = ("tiny", "8b")  # MoE training is not ported yet
 
 
 def _config(name):
@@ -39,6 +46,8 @@ def _config(name):
     return {
         "8b": LlamaConfig.llama3_8b,
         "tiny": lambda: LlamaConfig.tiny(dtype=torch.float32),
+        "tiny_moe": lambda: LlamaConfig.tiny_moe(dtype=torch.float32),
+        "mixtral": LlamaConfig.mixtral_8x7b,
     }[name]()
 
 
@@ -105,27 +114,30 @@ def cmd_train(args):
 
 
 def _build_engine(args, **engine_kw):
-    from nnop_tpu_torch.models.llama import init_params
+    from nnop_tpu_torch.models.llama import init_params, init_quantized_params
+    from nnop_tpu_torch.models.quantized import quantize_params
     from nnop_tpu_torch.models.weights import load_checkpoint
-    from nnop_tpu_torch.runtime.engine import Engine
+    from nnop_tpu_torch.runtime.engine import Engine, fuse_decode_weights
     from nnop_tpu_torch.runtime.tokenizer import BPETokenizer, VocabBPETokenizer
 
     cfg = _config(args.model)
     device = torch.device(args.device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
     if args.checkpoint:
         params = load_checkpoint(args.checkpoint, device)
+        if args.wbits < 16:
+            params = quantize_params(params, wbits=args.wbits)
+    elif args.wbits < 16:
+        params = init_quantized_params(gen, cfg, wbits=args.wbits)
     else:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(args.seed)
         params = init_params(gen, cfg)
-    if args.wbits < 16:
-        from nnop_tpu_torch.models.quantized import quantize_params
-
-        params = quantize_params(params, wbits=args.wbits)
     tokenizer = (VocabBPETokenizer.from_file(args.tokenizer)
                  if getattr(args, "tokenizer", None) else BPETokenizer([]))
-    return Engine(params, cfg, max_batch=args.batch, max_seq=cfg.max_seq_len,
-                  quantized_kv=args.int8_kv, tokenizer=tokenizer, **engine_kw)
+    # fused here, one layer at a time: the engine holds no unfused copy
+    return Engine(fuse_decode_weights(params, in_place=True), cfg, max_batch=args.batch,
+                  max_seq=cfg.max_seq_len, quantized_kv=args.int8_kv, tokenizer=tokenizer,
+                  **engine_kw)
 
 
 def cmd_generate(args):
@@ -206,7 +218,7 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train")
-    t.add_argument("--model", default="tiny", choices=_CONFIGS)
+    t.add_argument("--model", default="tiny", choices=_TRAIN_CONFIGS)
     t.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     t.add_argument("--steps", type=int, default=50)
     t.add_argument("--batch", type=int, default=4)

@@ -9,7 +9,9 @@ a tree as a frozen `nn.Module` in eval mode.
 Uses rms_norm (Triton), llama_rope (Triton) and flash_attention (CUDA);
 the projections and the MLP are plain `torch.matmul` products, as the JAX
 package leaves them to XLA, unless the `matmul=` hook routes them (the
-quantized products: models/quantized.py:qmatmul). `forward(..., plain=True)`
+quantized products: models/quantized.py:qmatmul). A Mixtral layer's MLP
+is the routed mixture of experts of models/moe.py (its grouped path runs
+kernel I). `forward(..., plain=True)`
 runs the plain versions of the ops instead, the reference the kernels are
 held to on the card. `init_quantized_params` builds random int8 or int4
 weights directly, without a floating-point copy.
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nnop_tpu_torch.models.moe import init_moe_layer, moe_mlp
 from nnop_tpu_torch.ops.flash_attention import flash_attention
 from nnop_tpu_torch.ops.naive import naive_attention, naive_rms_norm, naive_rope
 from nnop_tpu_torch.ops.quantization import QTensor, QTensor4, _pick_pack_block
@@ -58,7 +61,10 @@ class LlamaConfig:
       rope_scaling: Llama-3.1 NTK-by-parts scaling (factor,
         low_freq_factor, high_freq_factor, original_max_len).
       n_experts / n_experts_per_token / capacity_factor /
-        router_aux_coef / moe_impl: Mixtral (MoE is not ported yet).
+        router_aux_coef / moe_impl: Mixtral — the MLP becomes a top-k
+        routed mixture of experts (models/moe.py); hidden_dim is the
+        per-expert hidden size. moe_impl "einsum" (capacity dispatch) or
+        "grouped" (expert-sorted grouped products).
     """
 
     vocab_size: int = 128256
@@ -171,9 +177,9 @@ class LlamaConfig:
 def init_params(generator: torch.Generator, cfg: LlamaConfig):
     """Random-init params tree on the generator's device (the JAX
     package's init: N(0, 1/fan_in) projections, N(0, 0.02^2) embeddings,
-    identity norms). Same seed, different numbers than jax.random."""
-    if cfg.n_experts is not None:
-        raise NotImplementedError("MoE configs are not ported yet")
+    identity norms; a MoE layer's router and stacked experts as
+    models/moe.py:init_moe_layer). Same seed, different numbers than
+    jax.random."""
     d, hd = cfg.dim, cfg.head_dim
     dev = generator.device
 
@@ -199,10 +205,15 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig):
             "wv": dense((d, cfg.n_kv_heads * hd)),
             "wo": dense((cfg.n_heads * hd, d)),
             "mlp_norm": full(d),
-            "w_gate": dense((d, cfg.hidden_dim)),
-            "w_up": dense((d, cfg.hidden_dim)),
-            "w_down": dense((cfg.hidden_dim, d)),
         }
+        if cfg.n_experts is not None:
+            out.update(init_moe_layer(cfg, dense))
+        else:
+            out.update({
+                "w_gate": dense((d, cfg.hidden_dim)),
+                "w_up": dense((d, cfg.hidden_dim)),
+                "w_down": dense((cfg.hidden_dim, d)),
+            })
         if cfg.qkv_bias:
             out["bq"] = zeros(cfg.n_heads * hd)
             out["bk"] = zeros(cfg.n_kv_heads * hd)
@@ -231,9 +242,11 @@ def init_quantized_params(generator: torch.Generator, cfg: LlamaConfig, *, wbits
 
     Unlike the JAX package, which draws whole int4 bytes (so every nibble
     has mean -0.5 and the random model's logits collapse onto one
-    direction), each nibble is drawn from [-7, 7]."""
-    if cfg.n_experts is not None:
-        raise NotImplementedError("MoE configs are not ported yet")
+    direction), each nibble is drawn from [-7, 7].
+
+    A MoE layer's stacked experts are int8 with (E, N) scales (axis 1)
+    whatever wbits is, as in the JAX package; its router stays floating
+    point, N(0, 0.02^2)."""
     d, hd = cfg.dim, cfg.head_dim
     dev = generator.device
 
@@ -252,21 +265,34 @@ def init_quantized_params(generator: torch.Generator, cfg: LlamaConfig, *, wbits
                              dtype=torch.int8)
         return QTensor(vals, torch.full((n,), fan_in**-0.5 / 74.0, device=dev), 0)
 
+    def qexperts(shape):
+        E, fan_in, n = shape
+        vals = torch.randint(-127, 128, shape, generator=generator, device=dev,
+                             dtype=torch.int8)
+        return QTensor(vals, torch.full((E, n), fan_in**-0.5 / 74.0, device=dev), 1)
+
     def ones():
         return torch.ones((d,), dtype=cfg.dtype, device=dev)
 
     def layer():
-        return {
+        out = {
             "attn_norm": ones(),
             "wq": qdense((d, cfg.n_heads * hd)),
             "wk": qdense((d, cfg.n_kv_heads * hd)),
             "wv": qdense((d, cfg.n_kv_heads * hd)),
             "wo": qdense((cfg.n_heads * hd, d)),
             "mlp_norm": ones(),
-            "w_gate": qdense((d, cfg.hidden_dim)),
-            "w_up": qdense((d, cfg.hidden_dim)),
-            "w_down": qdense((cfg.hidden_dim, d)),
         }
+        if cfg.n_experts is None:
+            out.update(w_gate=qdense((d, cfg.hidden_dim)), w_up=qdense((d, cfg.hidden_dim)),
+                       w_down=qdense((cfg.hidden_dim, d)))
+            return out
+        E = cfg.n_experts
+        router = torch.randn((d, E), generator=generator, device=dev)
+        out.update(w_router=router.mul_(0.02).to(cfg.dtype),
+                   w_gate=qexperts((E, d, cfg.hidden_dim)), w_up=qexperts((E, d, cfg.hidden_dim)),
+                   w_down=qexperts((E, cfg.hidden_dim, d)))
+        return out
 
     embed = torch.randn((cfg.vocab_size, d), generator=generator, device=dev)
     return {
@@ -321,9 +347,16 @@ def attention_block(layer, x, cos, sin, cfg: LlamaConfig, *, kpad_mask=None,
     """rms_norm -> qkv proj -> rope -> flash attention -> out proj (+ x)."""
     norm, rope, attention = _PLAIN_OPS if plain else _KERNEL_OPS
     h = norm(x, layer["attn_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-    xq, xk, xv = matmul(h, layer["wq"]), matmul(h, layer["wk"]), matmul(h, layer["wv"])
-    if cfg.qkv_bias:
-        xq, xk, xv = xq + layer["bq"], xk + layer["bk"], xv + layer["bv"]
+    if "wqkv" in layer:  # the engine's fused weights (runtime/engine.py:fuse_decode_weights)
+        qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        qkv = matmul(h, layer["wqkv"])
+        if cfg.qkv_bias:
+            qkv = qkv + layer["bqkv"]
+        xq, xk, xv = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    else:
+        xq, xk, xv = matmul(h, layer["wq"]), matmul(h, layer["wk"]), matmul(h, layer["wv"])
+        if cfg.qkv_bias:
+            xq, xk, xv = xq + layer["bq"], xk + layer["bk"], xv + layer["bv"]
     q = _split_heads(xq, cfg.n_heads, cfg.head_dim)
     k = _split_heads(xk, cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(xv, cfg.n_kv_heads, cfg.head_dim)
@@ -338,28 +371,43 @@ def attention_block(layer, x, cos, sin, cfg: LlamaConfig, *, kpad_mask=None,
     return x + _post(norm, layer, out, cfg, "attn_post_norm")
 
 
-def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False, matmul=_matmul):
-    """Gated MLP (SwiGLU / GeGLU) with residual."""
+def mlp_block(layer, x, cfg: LlamaConfig, *, plain=False, matmul=_matmul, w8a8: bool = False):
+    """Gated MLP (SwiGLU / GeGLU), or the routed mixture of experts when
+    cfg.n_experts is set, with residual. Returns (x + out, aux), aux the
+    router's load-balancing loss (0 for a dense MLP). w8a8: the experts'
+    W8A8 routing (models/moe.py:moe_mlp_grouped)."""
     norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
     h = norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
-    gate = act_fn(cfg, matmul(h, layer["w_gate"]).float())
-    up = matmul(h, layer["w_up"]).float()
+    if cfg.n_experts is not None:
+        B, L, d = h.shape
+        out, aux = moe_mlp(layer, h.reshape(B * L, d), cfg, act=lambda g: act_fn(cfg, g),
+                           w8a8=w8a8, plain=plain)
+        return x + _post(norm, layer, out.reshape(B, L, d), cfg, "mlp_post_norm"), aux
+    if "w_gateup" in layer:  # the engine's fused weights
+        gu = matmul(h, layer["w_gateup"]).float()
+        gate, up = act_fn(cfg, gu[..., :cfg.hidden_dim]), gu[..., cfg.hidden_dim:]
+    else:
+        gate = act_fn(cfg, matmul(h, layer["w_gate"]).float())
+        up = matmul(h, layer["w_up"]).float()
     out = matmul((gate * up).to(x.dtype), layer["w_down"])
-    return x + _post(norm, layer, out, cfg, "mlp_post_norm")
+    return x + _post(norm, layer, out, cfg, "mlp_post_norm"), 0.0
 
 
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
-            segment_ids=None, plain: bool = False, matmul=None):
+            segment_ids=None, plain: bool = False, matmul=None, return_aux: bool = False,
+            w8a8: bool = False):
     """Full forward pass: tokens (B, L) int -> logits (B, L, vocab) f32.
+    params: the tree, or the engine's fused one (fuse_decode_weights).
 
     positions: (B, L) absolute positions (default arange). plain: run the
-    plain versions of rms_norm, rope and attention (the kernels' oracle)
-    instead of the kernels. matmul(x, w): the projection and lm_head
-    product (default x @ w; models.quantized.qmatmul for quantized
-    params)."""
+    plain versions of rms_norm, rope, attention and the grouped expert
+    products (the kernels' oracle) instead of the kernels. matmul(x, w):
+    the projection and lm_head product (default x @ w;
+    models.quantized.qmatmul for quantized params). return_aux: also
+    return the router load-balancing loss summed over the layers (0 for a
+    dense model). w8a8: int8 experts run W8A8 where the engine's prefill
+    runs it (models/moe.py)."""
     mm = matmul or _matmul
-    if cfg.n_experts is not None:
-        raise NotImplementedError("MoE configs are not ported yet")
     B, L = tokens.shape
     if positions is None:
         positions = torch.arange(L, device=tokens.device).expand(B, L)
@@ -367,10 +415,12 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
     if cfg.embed_scale is not None:
         x = (x.float() * cfg.embed_scale).to(x.dtype)
     cos, sin = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)(positions)
+    aux_total = 0.0
     for i, layer in enumerate(params["layers"]):
         x = attention_block(layer, x, cos, sin, cfg, kpad_mask=kpad_mask, layer_idx=i,
                             segment_ids=segment_ids, plain=plain, matmul=mm)
-        x = mlp_block(layer, x, cfg, plain=plain, matmul=mm)
+        x, aux = mlp_block(layer, x, cfg, plain=plain, matmul=mm, w8a8=w8a8)
+        aux_total = aux_total + aux
     norm = _PLAIN_OPS[0] if plain else _KERNEL_OPS[0]
     x = norm(x, params["final_norm"], cfg.rms_eps, offset=cfg.rms_offset)
     if cfg.tie_embeddings:
@@ -379,13 +429,19 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
         logits = mm(x, params["lm_head"]).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if return_aux:
+        return logits, torch.as_tensor(aux_total, dtype=torch.float32, device=logits.device)
     return logits
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, *, plain: bool = False):
     """Next-token cross-entropy, the mean over all positions
     (nnop_tpu/models/llama.py:loss_fn): tokens, targets (B, L) int ->
-    scalar f32. plain as in forward. MoE configs raise (not ported)."""
+    scalar f32. plain as in forward. MoE configs raise: MoE training (the
+    router's aux term, the grouped products' backward) is the next slice
+    of the port."""
+    if cfg.n_experts is not None:
+        raise NotImplementedError("MoE training is not ported yet")
     logits = forward(params, tokens, cfg, plain=plain)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]

@@ -3,8 +3,10 @@ dispatch.
 
 Counterpart of nnop_tpu/models/quantized.py. Projection weights become
 QTensors (int8/fp8, per-output-channel scales) or QTensor4s (packed int4,
-group scales); norms and the embedding table stay floating point. MoE
-experts are not ported. `qmatmul` is the `matmul=` hook of
+group scales); norms and the embedding table stay floating point. A MoE
+layer's stacked experts become int8 with per-(expert, column) scales or
+per-expert packed int4 (ops/grouped_matmul.py:quantize4_experts), served
+by kernel I; its router stays floating point. `qmatmul` is the `matmul=` hook of
 models.llama.forward and the engine's product dispatch.
 """
 
@@ -15,6 +17,7 @@ import functools
 import torch
 
 from nnop_tpu_torch.ops import naive
+from nnop_tpu_torch.ops.grouped_matmul import quantize4_experts
 from nnop_tpu_torch.ops.quantization import QTensor, QTensor4, quantize, quantize4
 from nnop_tpu_torch.ops.quantized_matmul import (
     quantized_matmul,
@@ -23,27 +26,39 @@ from nnop_tpu_torch.ops.quantized_matmul import (
     quantize_act,
 )
 
-_QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
+# the projections, and the engine's fused ones (quantizing a fused weight
+# gives the bytes of fusing the quantized parts: the scales are per column)
+_QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head", "wqkv", "w_gateup"}
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down", "w_gateup")  # stacked in a MoE layer
 W8A8_MIN_ROWS = 256  # products with at least this many rows run W8A8
 
 
 def quantize_params(params, dtype=torch.int8, *, wbits: int = 8, group: int = 128):
     """Quantize the projection weights: int8/fp8 with per-out-channel
     scales (wbits=8) or packed int4 with per-(K-group, channel) scales
-    (wbits=4)."""
-    if any("w_router" in layer for layer in params["layers"]):
-        raise NotImplementedError("MoE layers are not ported yet")
+    (wbits=4). Stacked MoE experts (E, K, N): int8 with per-(E, N)
+    scales (axis 1, int8 whatever `dtype` is, as in the JAX package) or
+    per-expert packed int4; the router stays floating point."""
 
     def q(w):
         if wbits == 4:
             return quantize4(w, group=group)
         return quantize(w, axis=0, dtype=dtype)
 
+    def q_experts(w):
+        if wbits == 4:
+            return quantize4_experts(w, group=group)
+        return quantize(w, axis=1)
+
+    def q_layer(layer):
+        experts = _EXPERT_KEYS if "w_router" in layer else ()
+        return {k: q_experts(v) if k in experts else q(v) if k in _QUANT_KEYS else v
+                for k, v in layer.items()}
+
     out = dict(params)
     if "lm_head" in params:
         out["lm_head"] = q(params["lm_head"])
-    out["layers"] = [{k: q(v) if k in _QUANT_KEYS else v for k, v in layer.items()}
-                     for layer in params["layers"]]
+    out["layers"] = [q_layer(layer) for layer in params["layers"]]
     return out
 
 

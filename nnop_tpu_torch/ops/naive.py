@@ -446,3 +446,55 @@ def naive_quantized_matmul_w8a8(xv, xs, w: QTensor, out_dtype=torch.bfloat16):
     int32 sum is, then (acc * xs) * ws in f32."""
     acc = (xv.double() @ w.values.double()).float()
     return (acc * xs.float() * w.scale).to(out_dtype)
+
+
+# ---- grouped (MoE) products (nnop_tpu/ops/grouped_matmul.py) -------------
+
+
+def _per_expert(block_groups, block_m: int, shape, out_dtype, device, product):
+    """An (Tp, N) output whose rows of block b are product(sel, e) for e =
+    block_groups[b], with sel the boolean mask of all expert e's rows: one
+    product per expert. Selecting the rows syncs the host (a plain version
+    may)."""
+    row_expert = block_groups.to(device).long().repeat_interleave(block_m)
+    out = torch.zeros(shape, dtype=out_dtype, device=device)
+    for e in torch.unique(row_expert).tolist():
+        sel = row_expert == e
+        out[sel] = product(sel, e).to(out_dtype)
+    return out
+
+
+def naive_grouped_matmul(x, w, block_groups, block_m: int):
+    """x (Tp, K) expert-sorted rows @ w (E, K, N) per block: both operands
+    in the compute dtype, fp32 accumulation. Returns (Tp, N) in x.dtype."""
+    ct = _compute_dtype(x)
+    return _per_expert(block_groups, block_m, (x.shape[0], w.shape[2]), x.dtype, x.device,
+                       lambda sel, e: x[sel].to(ct).float() @ w[e].to(ct).float())
+
+
+def naive_grouped_matmul_quantized(x, w: QTensor, block_groups, block_m: int, out_dtype=None):
+    """Grouped naive_quantized_matmul: w values (E, K, N) int8 with scale
+    (E, N) (axis 1)."""
+    out_dtype = out_dtype or x.dtype
+    return _per_expert(block_groups, block_m, (x.shape[0], w.values.shape[2]), out_dtype,
+                       x.device, lambda sel, e: naive_quantized_matmul(
+                           x[sel], QTensor(w.values[e], w.scale[e], 0), out_dtype))
+
+
+def naive_grouped_matmul_w8a8(xv, xs, w: QTensor, block_groups, block_m: int,
+                              out_dtype=torch.bfloat16):
+    """Grouped naive_quantized_matmul_w8a8: int8 rows xv (Tp, K) with
+    scales xs (Tp, 1), w values (E, K, N) int8 with scale (E, N)."""
+    return _per_expert(block_groups, block_m, (xv.shape[0], w.values.shape[2]), out_dtype,
+                       xv.device, lambda sel, e: naive_quantized_matmul_w8a8(
+                           xv[sel], xs[sel], QTensor(w.values[e], w.scale[e], 0), out_dtype))
+
+
+def naive_grouped_matmul4(x, w: QTensor4, block_groups, block_m: int, out_dtype=None):
+    """Grouped naive_quantized_matmul4: w packed (E, Kp/2, N), scale (E,
+    Kp/group, N)."""
+    out_dtype = out_dtype or x.dtype
+    return _per_expert(block_groups, block_m, (x.shape[0], w.packed.shape[2]), out_dtype,
+                       x.device, lambda sel, e: naive_quantized_matmul4(
+                           x[sel], QTensor4(w.packed[e], w.scale[e], w.group, w.pack_block),
+                           out_dtype))

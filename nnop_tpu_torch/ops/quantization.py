@@ -48,7 +48,9 @@ class QTensor:
 
 @dataclasses.dataclass
 class QTensor4:
-    """packed: int8 (K/2, N) nibble pairs; scale: f32 (K/group, N).
+    """packed: int8 (K/2, N) nibble pairs; scale: f32 (K/group, N). Stacked
+    experts (ops/grouped_matmul.py:quantize4_experts) add a leading E axis
+    to both.
 
     Inside each `pack_block` P of K, packed row r holds original row r in
     its low nibble and row r + P/2 in its high nibble."""
@@ -60,7 +62,7 @@ class QTensor4:
 
     @property
     def k_dim(self) -> int:
-        return 2 * self.packed.shape[0]
+        return 2 * self.packed.shape[-2]
 
 
 def quantize(x: torch.Tensor, *, axis: int = -1, dtype=torch.int8) -> QTensor:

@@ -2,10 +2,12 @@
 or paged KV.
 
 Counterpart of nnop_tpu/runtime/engine.py for floating-point or quantized
-weights (int8/fp8 and packed int4, models/quantized.py) and a
-floating-point or int8 KV cache, held per slot (linear) or in a shared
-page pool (`paged`). The design is the JAX engine's, so greedy token
-streams match it token for token:
+weights (int8/fp8 and packed int4, models/quantized.py), dense or
+mixture-of-experts (Mixtral: every MoE layer takes the grouped expert
+path, models/moe.py, on kernel I) layers, and a floating-point or int8 KV
+cache, held per slot (linear) or in a shared page pool (`paged`). The
+design is the JAX engine's, so greedy token streams match it token for
+token:
 
 * `make_decode_chunk` runs `chunk_size` decode steps per dispatch. Each
   step writes its K/V token into a bf16 STAGING buffer (in place), and
@@ -50,6 +52,7 @@ from typing import Optional
 import torch
 
 from nnop_tpu_torch.models.llama import LlamaConfig, _merge_heads, _split_heads, act_fn
+from nnop_tpu_torch.models.moe import moe_mlp
 from nnop_tpu_torch.models.quantized import qmatmul
 from nnop_tpu_torch.ops.attention_decode import decode_attention
 from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
@@ -118,6 +121,11 @@ def _attn_out(layer, o, x, cfg: LlamaConfig, w8a8: bool = False):
 
 def _layer_mlp(layer, x, cfg: LlamaConfig, w8a8: bool = False):
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps, offset=cfg.rms_offset)
+    if "w_router" in layer:  # MoE (Mixtral): the grouped expert path, kernel I
+        B, L, d = h.shape
+        out, _ = moe_mlp(layer, h.reshape(B * L, d), cfg, act=lambda g: act_fn(cfg, g),
+                         impl="grouped", w8a8=w8a8)
+        return x + _post_norm(layer, out.reshape(B, L, d).to(x.dtype), cfg, "mlp_post_norm")
     gu = qmatmul(h, layer["w_gateup"], w8a8=w8a8).float()
     gate = act_fn(cfg, gu[..., : cfg.hidden_dim])
     up = gu[..., cfg.hidden_dim :]
@@ -249,31 +257,49 @@ def sample_tokens(logits, generator: Optional[torch.Generator], temperature: flo
 
 
 def _cat_columns(ws):
-    """Concatenate (K, N_i) weights along N: plain tensors, QTensors
-    (values and per-N scales) or QTensor4s (packed planes and group
-    scales; the same K packing for all)."""
+    """Concatenate weights along N, their last axis: (K, N_i) projections
+    or stacked (E, K, N_i) experts, as plain tensors, QTensors (values and
+    scales, whose last axis is N too) or QTensor4s (packed planes and
+    group scales; the same K packing for all)."""
     if isinstance(ws[0], QTensor):
-        return QTensor(torch.cat([w.values for w in ws], dim=1),
-                       torch.cat([w.scale for w in ws], dim=0), 0)
+        return QTensor(torch.cat([w.values for w in ws], dim=-1),
+                       torch.cat([w.scale for w in ws], dim=-1), ws[0].axis)
     if isinstance(ws[0], QTensor4):
-        return QTensor4(torch.cat([w.packed for w in ws], dim=1),
-                        torch.cat([w.scale for w in ws], dim=1), ws[0].group, ws[0].pack_block)
-    return torch.cat(ws, dim=1)
+        return QTensor4(torch.cat([w.packed for w in ws], dim=-1),
+                        torch.cat([w.scale for w in ws], dim=-1), ws[0].group, ws[0].pack_block)
+    return torch.cat(ws, dim=-1)
 
 
-def fuse_decode_weights(params):
+def _fuse_layer(layer):
+    if "wqkv" in layer:  # fused already
+        return layer
+    fused = {k: v for k, v in layer.items()
+             if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
+    fused["wqkv"] = _cat_columns([layer["wq"], layer["wk"], layer["wv"]])
+    fused["w_gateup"] = _cat_columns([layer["w_gate"], layer["w_up"]])
+    if "bq" in layer:
+        fused["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
+    return fused
+
+
+def fuse_decode_weights(params, *, in_place: bool = False):
     """Concatenate per-layer projections for fewer launches in decode:
-    wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup (biases too)."""
+    wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup (biases too; a MoE
+    layer's stacked experts fuse along N, as the JAX engine's
+    cat_experts does). Layers fused already pass through, so fusing
+    twice changes nothing.
+
+    in_place: replace the layers of `params` one at a time, so that each
+    layer's unfused weights are freed once it is fused (when nothing else
+    holds them): the copies cost one layer of memory, not the model's
+    gate and up weights again (30 GB for int8 Mixtral-8x7B)."""
+    if in_place:
+        layers = params["layers"]
+        for i in range(len(layers)):
+            layers[i] = _fuse_layer(layers[i])
+        return params
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = []
-    for layer in params["layers"]:
-        fused = {k: v for k, v in layer.items()
-                 if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
-        fused["wqkv"] = _cat_columns([layer["wq"], layer["wk"], layer["wv"]])
-        fused["w_gateup"] = _cat_columns([layer["w_gate"], layer["w_up"]])
-        if "bq" in layer:
-            fused["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
-        out["layers"].append(fused)
+    out["layers"] = [_fuse_layer(layer) for layer in params["layers"]]
     return out
 
 
@@ -426,8 +452,6 @@ def _check_params(params):
         if not (isinstance(t, (QTensor, QTensor4))
                 or (isinstance(t, torch.Tensor) and t.is_floating_point())):
             raise TypeError(f"unsupported parameter leaf {type(t).__name__}")
-    if any("w_router" in layer for layer in params["layers"]):
-        raise NotImplementedError("MoE layers are not ported yet")
 
 
 class Engine:

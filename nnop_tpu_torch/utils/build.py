@@ -57,6 +57,9 @@ SIGNATURES = {
     "nnop_qmm": [_P] * 5 + [_I] * 7 + [_P],
     # xv, xs, w, ws, out, M, N, K, out_is_f32, stream
     "nnop_qmm_w8a8": [_P] * 5 + [_I] * 4 + [_P],
+    # x, xs, w, scale, out, block_groups, block_rows, M, N, K, block_m, mode,
+    # group, pack_block, out_is_f32, stream
+    "nnop_gmm": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 

@@ -10,8 +10,9 @@ on the card's machine:
 2e-2 absolute for bf16 outputs (one bf16 ulp below magnitude 4 is
 <= 1.6e-2, and both sides accumulate in fp32 in another order), scaled
 by max(1, max|plain|) for the quantized products (bf16 sums over K in
-another order); the flushes (also the int8 and paged ones), the one-token
-write and the W8A8 product with f32 output must be bit-exact. The
+another order; kernel I's grouped products as these); the flushes (also
+the int8 and paged ones), the one-token write and the W8A8 products with
+f32 output (G and kernel I's W8A8 mode) must be bit-exact. The
 training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV) are held
 to the plain forward and backward formulas of ops/naive.py, and the
 attention backward must give the same bits on two runs.
@@ -28,6 +29,13 @@ from nnop_tpu_torch.ops.flash_attention_bwd import (
     flash_attention_bwd,
     flash_bwd_dkv,
     flash_bwd_dq,
+)
+from nnop_tpu_torch.ops.grouped_matmul import (
+    _grouped_matmul_q4,
+    grouped_matmul,
+    grouped_matmul_quantized,
+    grouped_matmul_w8a8,
+    quantize4_experts,
 )
 from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
 from nnop_tpu_torch.ops.quantization import quantize, quantize4
@@ -252,6 +260,61 @@ def test_quantized_matmul_w8a8_kernel(gen, M, K, N):
     assert torch.equal(got, naive.naive_quantized_matmul_w8a8(xv, xs, w, torch.float32))
     got = quantized_matmul_w8a8((xv, xs), w)
     _close_scaled(got, naive.naive_quantized_matmul_w8a8(xv, xs, w))
+
+
+# ---- kernel I: the grouped (MoE) products ----------------------------------
+
+# (block_m, experts of the blocks, real rows of each block, K, N): decode
+# blocks of 32 (experts 1, 2, 4-6 hold no row; the trailing blocks are
+# clipped to expert 7, as the sort glue makes them, and hold no row), every
+# block on one expert (prefill skew), and a ragged K/N (the guarded path)
+GROUPED_CASES = {
+    "decode_bm32_empty_experts": (32, [0, 3, 3, 7, 7, 7], [5, 32, 1, 2, 0, 0], 4096, 1024),
+    "one_expert_bm128": (128, [5, 5, 5], [128, 128, 60], 1024, 640),
+    "ragged_K300_N200": (64, [0, 2], [64, 10], 300, 200),
+}
+
+
+def _grouped_inputs(gen, case, E=8):
+    bm, groups, rows, K, N = GROUPED_CASES[case]
+    x = _bf(gen, bm * len(groups), K)
+    real = (torch.arange(bm, device="cuda")[None] < torch.tensor(rows, device="cuda")[:, None])
+    x = x * real.reshape(-1, 1).to(x.dtype)  # rows past block_rows are zero, as sorted
+    bg = torch.tensor(groups, dtype=torch.int32, device="cuda")
+    br = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    return x, _bf(gen, E, K, N, scale=K ** -0.5), bg, br, bm
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+@pytest.mark.parametrize("mode", ["bf16", "int8", "w8a8", "int4"])
+def test_grouped_matmul_kernel(gen, case, mode):
+    x, w, bg, br, bm = _grouped_inputs(gen, case)
+    for rows in (None, br):  # every tile computed, or the empty ones skipped
+        kw = dict(block_m=bm, block_rows=rows)
+        if mode == "bf16":
+            before = grouped_matmul.launches
+            got, want = grouped_matmul(x, w, bg, **kw), naive.naive_grouped_matmul(x, w, bg, bm)
+            assert grouped_matmul.launches == before + 1
+            torch.testing.assert_close(got, want, **TOL)
+        elif mode == "int8":
+            wq = quantize(w.float(), axis=1)
+            got = grouped_matmul_quantized(x, wq, bg, **kw)
+            _close_scaled(got, naive.naive_grouped_matmul_quantized(x, wq, bg, bm))
+        elif mode == "w8a8":
+            wq = quantize(w.float(), axis=1)
+            xv, xs = quantize_act(x)
+            got = grouped_matmul_w8a8((xv, xs), wq, bg, out_dtype=torch.float32, **kw)
+            assert torch.equal(got, naive.naive_grouped_matmul_w8a8(xv, xs, wq, bg, bm,
+                                                                    torch.float32))
+            got = grouped_matmul_w8a8((xv, xs), wq, bg, **kw)
+            _close_scaled(got, naive.naive_grouped_matmul_w8a8(xv, xs, wq, bg, bm))
+        else:
+            wq = quantize4_experts(w.float())
+            got = _grouped_matmul_q4(x, wq, bg, **kw)
+            _close_scaled(got, naive.naive_grouped_matmul4(x, wq, bg, bm))
+        if rows is not None:  # the skipped tiles hold exact zeros
+            real = torch.arange(bm, device="cuda")[None] < br[:, None]
+            assert (got[~real.reshape(-1)] == 0).all()
 
 
 # ---- training: A with rstd, A-bwd, B backward, dQ and dK/dV -------------
