@@ -1,5 +1,5 @@
 """Drive the port's serving and training paths once on one H100:
-Llama-3-8B and Mixtral-8x7B.
+Llama-3-8B and Mixtral-8x7B, each served and trained.
 
     python3 chip_smoke.py
 
@@ -52,10 +52,20 @@ non-zero:
      step 1's batch at a lower loss after the last step, the exact launch
      counts of every step, no plain version called; ms per step, tokens/s,
      peak memory and a torch.profiler breakdown of the last step.
-Each serving phase (and phase 8b) sets the launch counts to 0 just before
-it runs and reads them just after. The seconds of each phase are printed
-before the last two lines: {"kernels": [...]}, then {"ok": true,
-"device": {...}}.
+ 10. MoE training, after 8: (a) one Mixtral MoE layer at full width (T
+     4096, bf16, moe_impl="grouped"): the gradients of h, w_router, w_gate,
+     w_up and w_down and the aux term through kernel I (forward and dx)
+     and the dw kernel against the plain versions, and against the einsum
+     path; (b) phase 8b's trainer on Mixtral-8x7B at full width with 2
+     layers (moe_impl="grouped"; full depth needs 560 GB for weights,
+     gradients and moments).
+Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
+(the new kernel) and dx (kernel I on the transposed experts), a planted
+fault, two bit-identical dw runs, experts without a row.
+Each serving phase (and phases 8b and 10b) sets the launch counts to 0
+just before it runs and reads them just after. The seconds of each phase
+are printed before the last two lines: {"kernels": [...]}, then {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -357,6 +367,7 @@ def phase_kernels():
     phase_paged_kernels(p3, gen, randn)
     phase_products(p3, gen, randn)
     phase_grouped(p3, gen, randn)
+    phase_grouped_bwd(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
     return p3.results
 
@@ -932,6 +943,160 @@ def phase_grouped(p3, gen, randn):
     torch.cuda.empty_cache()
 
 
+DW_TILE_TOL = 1e-3
+DW_TILE_WHY = ("the largest |dw - plain| / |plain| over the (expert, 128 x 128) tiles of dw: bf16 "
+               "outputs of fp32 sums over ~1024 rows taken in another order (~2e-6 relative), so "
+               "the two sides round to different bf16 values (2^-8 relative apart) in few "
+               "elements; a tile whose plain dw is zero must be zero")
+
+
+def dw_tile_rel_err(got, ref, tile=128):
+    """The largest |got - ref| / |ref| (Frobenius norms) over the (expert,
+    tile x tile) tiles of (E, K, N) tensors; inf if a tile whose reference
+    is zero is not zero."""
+    def tiles(t):
+        E, K, N = t.shape
+        t = torch.nn.functional.pad(t.float(), (0, -N % tile, 0, -K % tile))
+        return t.reshape(E, t.shape[1] // tile, tile, t.shape[2] // tile, tile).transpose(2, 3)
+
+    dn = tiles(got.float() - ref.float()).pow(2).sum((-1, -2)).sqrt()
+    rn = tiles(ref).pow(2).sum((-1, -2)).sqrt()
+    zero = rn == 0
+    if bool((dn[zero] > 0).any()):
+        return float("inf")
+    return (dn[~zero] / rn[~zero]).max().item()
+
+
+def _grouped_mm_dw_ms(x, dy, offs):
+    """torch._grouped_mm in its 2-D x 2-D mode with offsets on the shared
+    (row) dimension, x^T (K, Tp) by dy (Tp, N) -> (E, K, N): the yardstick
+    for the dw kernel, or None with the error printed. The layouts some
+    torch builds ask of the operands are tried in turn."""
+    errors = []
+    for a, b in ((x.t(), dy), (x.t().contiguous(), dy),
+                 (x.t().contiguous(), dy.t().contiguous().t())):
+        try:
+            torch._grouped_mm(a, b, offs=offs)
+        except Exception as e:  # noqa: BLE001 - the yardstick is optional; try the next layout
+            errors.append(f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+            continue
+        return library_ms("grouped_matmul_dw", lambda: torch._grouped_mm(a, b, offs=offs), n=5)
+    print(f"phase 3 grouped_matmul_dw: library call torch._grouped_mm (2-D x 2-D, offs on the "
+          f"rows) raised for every layout: {errors[-1]}")
+    return None
+
+
+def phase_grouped_bwd(p3, gen, randn):
+    """The grouped product's backward at Mixtral's training shapes (B 1, L
+    4096, top 2: 8192 assignments, block_m 512, Tp 12288): dw (the new
+    kernel) and dx (kernel I on the transposed experts) for w_gate (8,
+    4096, 14336) and w_down (8, 14336, 4096); a planted fault against the
+    dw gate; two bit-identical dw runs; edge cases: experts without a row
+    (dw exactly 0 over memory poisoned with NaN) at decode-sized block_m
+    32, and every row on one expert."""
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_dw
+
+    dev = torch.device("cuda")
+    d, hidden, E, k = (MIXTRAL[n] for n in ("d", "hidden", "E", "k"))
+    T = 4096
+    x_d, bg, rows, bm, offs, hit = _routed_rows(gen, T, k, E, d)
+    Tp = x_d.shape[0]
+    check(Tp == 12288 and bm == 512, f"training Tp {Tp}, block_m {bm}")
+    real = rows_mask(rows, bm)[:, None]
+    print(f"phase 3 grouped backward routing: {T} tokens, top {k}: {T * k} assignments, Tp {Tp}, "
+          f"block_m {bm}, real rows per block {rows.tolist()}")
+
+    def tol(ref):
+        return BF16_TOL * max(1.0, ref.float().abs().max().item())
+
+    def poisoned_dw(x, dy, groups, brows, bmm):
+        """dw with the allocator's next block of its size filled with NaN
+        first, so an unwritten element would show."""
+        junk = torch.full((E, x.shape[1], dy.shape[1]), float("nan"), dtype=torch.bfloat16,
+                          device=dev)
+        del junk
+        return grouped_matmul_dw(x, dy, groups, block_m=bmm, n_experts=E, block_rows=brows)
+
+    for what, (K, N) in (("w_gate", (d, hidden)), ("w_down", (hidden, d))):
+        x = x_d if K == d else randn(Tp, K) * real
+        dy = randn(Tp, N, scale=0.1) * real
+        w = randn(E, K, N, scale=K ** -0.5)
+        n_real = T * k
+        got = poisoned_dw(x, dy, bg, rows, bm)
+        ref = naive.naive_grouped_matmul_dw(x, dy, bg, bm, E, rows)
+        check(bool(torch.isfinite(got).all()), f"dw {what}: non-finite values")
+        if what == "w_gate":
+            again = grouped_matmul_dw(x, dy, bg, block_m=bm, n_experts=E, block_rows=rows)
+            check(torch.equal(got, again), "dw: two runs on the same inputs differ")
+            print("phase 3 grouped_matmul_dw: two runs on the same inputs are bit-identical")
+            del again
+            # the gate's reach: the plain dw without the last block of the
+            # expert whose last block has the fewest real rows
+            last = {int(g): i for i, g in enumerate(bg.tolist()) if rows[i] > 0}
+            e_f, b_f = min(last.items(), key=lambda kv: int(rows[kv[1]]))
+            cut = rows.clone()
+            cut[b_f] = 0
+            fault = dw_tile_rel_err(naive.naive_grouped_matmul_dw(x, dy, bg, bm, E, cut), ref)
+            print(f"phase 3 grouped_matmul_dw: planted fault (expert {e_f} without its last block, "
+                  f"{int(rows[b_f])} of its {int(rows[bg == e_f].sum())} rows) reads tile "
+                  f"relative error {fault:.3e} (tol {DW_TILE_TOL:g})")
+            check(fault > DW_TILE_TOL, f"the planted dw fault passes the gate: {fault}")
+        kern = functools.partial(grouped_matmul_dw, x, dy, bg, block_m=bm, n_experts=E,
+                                 block_rows=rows)
+        p3.report("grouped_matmul_dw", f"training: Tp {Tp}, block_m {bm}, {n_real} real rows, "
+                  f"{what} dw ({E}, {K}, {N}) bf16", dw_tile_rel_err(got, ref), DW_TILE_TOL,
+                  DW_TILE_WHY, device_ms(kern, n=5),  # bound: each row read once, dw written once
+                  device_ms(lambda: naive.naive_grouped_matmul_dw(x, dy, bg, bm, E, rows), n=1,
+                            reps=3),
+                  bound(n_real * (K + N) * 2 + E * K * N * 2, 2 * n_real * K * N, "bf16"),
+                  _grouped_mm_dw_ms(x, dy, offs), what == "w_gate", "tile relative error",
+                  max_err(got, ref))
+        del got, ref
+        # dx: kernel I on dy with the experts transposed (what the backward runs)
+        wt = w.transpose(1, 2).contiguous()
+        got = grouped_matmul(dy, wt, bg, block_m=bm, block_rows=rows)
+        ref = naive.naive_grouped_matmul(dy, wt, bg, bm)
+        p3.report("grouped_matmul_dx", f"training: Tp {Tp}, block_m {bm}, {n_real} real rows, "
+                  f"{what} dx = dy ({Tp}, {N}) @ ({E}, {N}, {K}) bf16", max_err(got, ref),
+                  tol(ref), QMM_TOL_WHY,
+                  device_ms(lambda: grouped_matmul(dy, wt, bg, block_m=bm, block_rows=rows), n=5),
+                  device_ms(lambda: naive.naive_grouped_matmul(dy, wt, bg, bm), n=1, reps=3),
+                  bound(hit * N * K * 2 + n_real * (N + K) * 2, 2 * n_real * N * K, "bf16"),
+                  _grouped_mm_ms("grouped_matmul_dx", dy, wt, offs), what == "w_gate")
+        print(f"phase 3 grouped_matmul_dx: the backward's transposed copy of {what} "
+              f"({E}, {N}, {K}) takes {device_ms(lambda: w.transpose(1, 2).contiguous(), n=5):.4f} "
+              "ms (torch copy, not a kernel of the port)")
+        del x, dy, w, wt, got, ref
+        torch.cuda.empty_cache()
+
+    # edge cases at (4096, 4096): 8 decode tokens with experts 3 and 7
+    # without a row (block_m 32); all 4096 training tokens on expert 5
+    no3 = torch.tensor([[0, 1], [1, 2], [2, 0], [4, 5], [5, 6], [6, 4], [0, 2], [1, 4]],
+                       device=dev)
+    one = torch.full((T, 1), 5, device=dev)
+    for case, (x, bg, rows, bm, _, hit), empty in (
+            ("decode: 8 tokens, experts 3 and 7 without a row",
+             _routed_rows(gen, 8, k, E, d, idx=no3), (3, 7)),
+            (f"all {T} tokens on expert 5", _routed_rows(gen, T, 1, E, d, idx=one),
+             (0, 1, 2, 3, 4, 6, 7))):
+        dy = randn(x.shape[0], d, scale=0.1) * rows_mask(rows, bm)[:, None]
+        got = poisoned_dw(x, dy, bg, rows, bm)
+        check(all(bool((got[e] == 0).all()) for e in empty),
+              f"dw [{case}]: an expert without a row has a nonzero dw")
+        p3.report("grouped_matmul_dw", f"{case}: Tp {x.shape[0]}, block_m {bm}, (8, 4096, 4096); "
+                  f"experts {list(empty)} exactly 0", dw_tile_rel_err(
+                      got, naive.naive_grouped_matmul_dw(x, dy, bg, bm, E, rows)), DW_TILE_TOL,
+                  DW_TILE_WHY, measure="tile relative error")
+        w = randn(E, d, d, scale=d ** -0.5)
+        got = grouped_matmul(dy, w, bg, block_m=bm, block_rows=rows)
+        ref = naive.naive_grouped_matmul(dy, w, bg, bm)
+        p3.report("grouped_matmul_dx", f"{case}: Tp {x.shape[0]}, block_m {bm}, (8, 4096, 4096)",
+                  max_err(got, ref), tol(ref), QMM_TOL_WHY)
+        del x, dy, w, got, ref
+    torch.cuda.empty_cache()
+
+
 def rows_mask(rows, bm):
     """(Tp,) 1 for a block's real rows, 0 for its padding (bf16)."""
     return (torch.arange(bm, device=rows.device)[None] < rows[:, None]).reshape(-1).to(
@@ -1171,11 +1336,23 @@ GRAD_WHY = ("bf16 gradients through two layers of bf16 activations rounded in di
             "places. The worst leaf read cosine 0.999874 on an H100 80GB HBM3 at 700 W: "
             "1 - cosine is held to 4x that, |g - plain| / |plain| to about 2x the "
             "sqrt(2 (1 - cosine)) it implies; both stricter than the minimum cosine of 0.99")
-# per step of the 8-layer trainer: 2 norms per layer + the final norm, q
-# and k rotated per layer, one attention per layer
-TRAIN_LAUNCHES_PER_STEP = {"rms_norm_rstd": 17, "rms_norm_bwd": 17, "llama_rope": 16,
-                           "llama_rope_bwd": 16, "flash_fwd": 8, "flash_bwd_dq": 8,
-                           "flash_bwd_dkv": 8}
+
+
+def train_launches(n_layers, moe=False):
+    """The kernel launches of one training step: 2 norms per layer + the
+    final norm, q and k rotated per layer, one attention per layer; a MoE
+    layer's three grouped products, each with its dx and dw."""
+    per = {"rms_norm_rstd": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
+           "llama_rope": 2 * n_layers, "llama_rope_bwd": 2 * n_layers, "flash_fwd": n_layers,
+           "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    if moe:
+        per.update(grouped_matmul=3 * n_layers, grouped_matmul_dx=3 * n_layers,
+                   grouped_matmul_dw=3 * n_layers)
+    return per
+
+
+TRAIN_LAUNCHES_PER_STEP = train_launches(8)  # phase 8b's 8-layer trainer
+MOE_TRAIN_LAUNCHES_PER_STEP = train_launches(2, moe=True)  # phase 10b's 2-layer Mixtral
 
 
 def phase_grad_parity():
@@ -1231,7 +1408,8 @@ class _PlainCalls:
 
         self.calls, self.saved = {}, []
         for name in ("ops.naive", "ops.rms_norm", "ops.rope", "ops.flash_attention",
-                     "ops.flash_attention_bwd", "models.llama"):
+                     "ops.flash_attention_bwd", "ops.grouped_matmul", "models.llama",
+                     "models.moe"):
             mod = importlib.import_module(f"nnop_tpu_torch.{name}")
             for attr in dir(mod):
                 if attr.startswith("naive_") and callable(getattr(mod, attr)):
@@ -1250,28 +1428,28 @@ class _PlainCalls:
             setattr(mod, attr, fn)
 
 
-def phase_train(counters, idle):
-    """8b: cli.train_loop on Llama-3-8B at full width with 8 layers, B=1,
-    L=4096, the CLI's synthetic stream, AdamW at lr 1e-4 for 5 steps, the
-    last step under torch.profiler. Returns the launch counts.
+def phase_train(tag, cfg, expected, counters, idle):
+    """8b and 10b: cli.train_loop on `cfg` (full width, its depth cut),
+    B=1, L=4096, the CLI's synthetic stream, AdamW at lr 1e-4 for 5 steps,
+    the last step under torch.profiler; `expected` launches per step.
+    Returns the launch counts.
 
-    The stream (7*i+3) % 128256 has a period of 128256 tokens, more than
-    the steps see, so no step's (token, next token) pairs occur in an
-    earlier step's batch (the script counts them): the per-step losses
-    cannot show learning, and they are reported, not checked. What the
-    steps learned is checked on step 1's batch instead: its loss,
+    The stream (7*i+3) % vocab has a period of vocab tokens; the script
+    counts the (token, next token) pairs of a step's batch that occur in
+    an earlier step's (for Llama-3-8B's 128256 none do): the per-step
+    losses need not show learning, and they are reported, not checked.
+    What the steps learned is checked on step 1's batch instead: its loss,
     evaluated again after the last step, must be below its loss at step 1."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from nnop_tpu_torch.cli import train_loop
-    from nnop_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from nnop_tpu_torch.models.llama import init_params, loss_fn
     from nnop_tpu_torch.parallel.tp_llama import tree_leaves
     from nnop_tpu_torch.runtime.dataio import batches, pack_tokens
 
-    n_layers, seq, steps = 8, 4096, 5
-    lr = 1e-4  # the CLI's default 1e-3 raises step 1's loss at this width (PERF.md)
+    seq, steps = 4096, 5
+    lr = 1e-4  # the CLI's default 1e-3 raises step 1's loss at width 4096 (PERF.md)
     dev = torch.device("cuda")
-    cfg = LlamaConfig.llama3_8b(n_layers=n_layers)
     rows = pack_tokens([[(7 * i + 3) % cfg.vocab_size for i in range(seq * 64)]], seq_len=seq)
     seen, repeats = set(), 0  # (token, next token) pairs that recur across the steps' batches
     for (toks, tgts), _ in zip(batches(rows, 1, seed=0), range(steps)):
@@ -1304,7 +1482,7 @@ def phase_train(counters, idle):
         starts.append(time.perf_counter())
         params, state, losses = train_loop(cfg, params, rows, steps=steps, batch=1, lr=lr,
                                            device=dev, on_step=on_step,
-                                           log=lambda s: print(f"phase 8b {s}"))
+                                           log=lambda s: print(f"{tag} {s}"))
     launches = {c.name: c.read() for c in (*counters, *idle)}
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
@@ -1312,28 +1490,26 @@ def phase_train(counters, idle):
     del state, params
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 8b train: Llama-3-8B width, {n_layers} layers ({n_params / 1e9:.3f} B "
-          f"parameters), B=1, L={seq}, AdamW lr {lr:g}: losses per step "
-          f"{[round(x, 4) for x in losses]} ({repeats} of a step's (token, next token) pairs "
-          f"occur in an earlier step's batch); step 1's batch after step {steps}: "
-          f"{first_after:.4f} (was {losses[0]:.4f})")
+    print(f"{tag} train: {cfg.n_layers} layers ({n_params / 1e9:.3f} B parameters), B=1, "
+          f"L={seq}, AdamW lr {lr:g}: losses per step {[round(x, 4) for x in losses]} "
+          f"({repeats} of a step's (token, next token) pairs occur in an earlier step's batch); "
+          f"step 1's batch after step {steps}: {first_after:.4f} (was {losses[0]:.4f})")
     check(all(np.isfinite(losses)) and np.isfinite(first_after), f"non-finite loss: {losses}")
     check(first_after < losses[0], f"step 1's batch: loss {first_after} after training, "
           f"{losses[0]} before")
     prev = dict.fromkeys(per_step[0], 0)
     for i, counts in enumerate(per_step):
         step = {k: counts[k] - prev[k] for k in counts}
-        check(step == TRAIN_LAUNCHES_PER_STEP,
-              f"step {i + 1} launches {step}, expected {TRAIN_LAUNCHES_PER_STEP}")
+        check(step == expected, f"step {i + 1} launches {step}, expected {expected}")
         prev = counts
     check(all(launches[c.name] == 0 for c in idle),
           f"a kernel off the training path launched: {launches}")
     check(not plain.calls, f"plain versions called on the card: {plain.calls}")
     step_ms = [1e3 * (b - a) for a, b in zip(starts, ends)]
     med = statistics.median(step_ms[1:-1])
-    print(f"phase 8b launches per step (all {steps} steps): {TRAIN_LAUNCHES_PER_STEP}; "
+    print(f"{tag} launches per step (all {steps} steps): {expected}; "
           f"none of {sorted(c.name for c in idle)}; no plain version called")
-    print(f"phase 8b time: step ms {[round(x, 1) for x in step_ms]} (step 1 includes the "
+    print(f"{tag} time: step ms {[round(x, 1) for x in step_ms]} (step 1 includes the "
           f"first-call set-up, step {steps} runs under the profiler); median of steps "
           f"2-{steps - 1} {med:.1f} ms = {seq / (med / 1e3):.0f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB of "
@@ -1342,13 +1518,81 @@ def phase_train(counters, idle):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("ProfilerStep")]  # the step's span, not a kernel
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"phase 8b profile: step {steps} {step_ms[-1]:.1f} ms wall (profiled); device busy "
+    print(f"{tag} profile: step {steps} {step_ms[-1]:.1f} ms wall (profiled); device busy "
           f"{busy:.1f} ms = {100 * busy / step_ms[-1]:.1f}% of it, {100 * busy / med:.1f}% of the "
           "median unprofiled step; kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"phase 8b profile:   {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls "
+        print(f"{tag} profile:   {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls "
               f" {e.key[:90]}")
     return launches
+
+
+MOE_GRAD_COS = 0.9999
+MOE_GRAD_REL = 1e-2
+MOE_GRAD_WHY = ("one layer, the same routing on both sides (the router runs the same torch ops on "
+                "the same h): only the bf16 roundings of each product's fp32 sums differ, by one "
+                "bf16 ulp (2^-8 relative) in few elements; 1e-2 is ~2.5 ulps over a whole leaf")
+
+
+def phase_moe_grads():
+    """10a: one Mixtral MoE layer at full width (T 4096 tokens, bf16,
+    moe_impl="grouped"): the gradients of h, w_router, w_gate, w_up and
+    w_down and the aux term through the kernels against the plain
+    versions on the card, and the grouped path against the einsum path
+    (dropless: the same function)."""
+    from nnop_tpu_torch.models.llama import LlamaConfig
+    from nnop_tpu_torch.models.moe import init_moe_layer, moe_mlp
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.mixtral_8x7b(n_layers=1, moe_impl="grouped")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def dense(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * shape[0] ** -0.5).to(
+            torch.bfloat16)
+
+    layer = {k: v.requires_grad_(True) for k, v in init_moe_layer(cfg, dense).items()}
+    T = 4096
+    h = torch.randn((T, cfg.dim), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(
+        True)
+    t = torch.randn((T, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    names = ("h", "w_router", "w_gate", "w_up", "w_down")
+    leaves = [h] + [layer[n] for n in names[1:]]
+    act = torch.nn.functional.silu
+    results = {}
+    for path, kw in (("kernels", {}), ("plain", dict(plain=True)), ("einsum", dict(
+            impl="einsum"))):
+        out, aux = moe_mlp(layer, h, cfg, act=act, **kw)
+        loss = (out.float() * t.float()).sum() + aux
+        results[path] = (aux.detach(), torch.autograd.grad(loss, leaves))
+        del out, aux, loss
+        torch.cuda.empty_cache()
+    (k_aux, k_g), (p_aux, p_g), (e_aux, e_g) = (results[p] for p in ("kernels", "plain",
+                                                                      "einsum"))
+    check(torch.equal(k_aux, p_aux), f"aux: kernels {k_aux.item()} plain {p_aux.item()}")
+
+    def agree(a, b):
+        return [(_cosine(x, y), ((x.float() - y.float()).norm() / y.float().norm()).item())
+                for x, y in zip(a, b)]
+
+    kp, ke = agree(k_g, p_g), agree(k_g, e_g)
+    print(f"phase 10a grads: one Mixtral MoE layer, T={T}, bf16, grouped; aux {k_aux.item():.6f} "
+          f"(plain {p_aux.item():.6f}: identical, einsum {e_aux.item():.6f}); kernels against "
+          f"plain (cosine >= {MOE_GRAD_COS}, |g - plain| / |plain| <= {MOE_GRAD_REL:g}: "
+          f"{MOE_GRAD_WHY}): " + ", ".join(f"{n} {c:.6f} / {r:.3e}" for n, (c, r) in
+                                            zip(names, kp)))
+    print("phase 10a grads: grouped (kernels) against einsum, information (cosine >= 0.99 "
+          "required: the same function, the einsum path rounds the combine weights to bf16): "
+          + ", ".join(f"{n} {c:.6f} / {r:.3e}" for n, (c, r) in zip(names, ke)))
+    check(all(bool(torch.isfinite(g).all()) for g in k_g), "a non-finite gradient")
+    for n, (c, r) in zip(names, kp):
+        check(c >= MOE_GRAD_COS and r <= MOE_GRAD_REL, f"10a {n}: cosine {c}, relative {r}")
+    for n, (c, _) in zip(names, ke):
+        check(c >= 0.99, f"10a {n}: grouped against einsum cosine {c}")
+    del layer, h, t, leaves, results, k_g, p_g, e_g
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1368,6 +1612,7 @@ def main():
     from nnop_tpu_torch.ops.grouped_matmul import (
         _grouped_matmul_q4,
         grouped_matmul,
+        grouped_matmul_dw,
         grouped_matmul_quantized,
         grouped_matmul_w8a8,
     )
@@ -1434,8 +1679,12 @@ def main():
         "flash_bwd_dkv": (Counter("flash_bwd_dkv", flash_bwd_dkv), "cuda",
                           "nnop_tpu_torch/csrc/flash_bwd.cu",
                           "nnop_tpu/ops/flash_attention_bwd.py:724"),
-        "grouped_matmul": (Counter("grouped_matmul", grouped_matmul), "cuda", gmm_src,
-                           f"{gmm_rep}:111"),
+        "grouped_matmul": (Counter("grouped_matmul", grouped_matmul, minus="dx_launches"),
+                           "cuda", gmm_src, f"{gmm_rep}:111"),
+        "grouped_matmul_dx": (Counter("grouped_matmul_dx", grouped_matmul, "dx_launches"), "cuda",
+                              gmm_src, f"{gmm_rep}:111"),
+        "grouped_matmul_dw": (Counter("grouped_matmul_dw", grouped_matmul_dw), "cuda",
+                              "nnop_tpu_torch/csrc/gmm_dw.cu", f"{gmm_rep}:177"),
         "grouped_matmul_quantized": (Counter("grouped_matmul_quantized",
                                              grouped_matmul_quantized), "cuda", gmm_src,
                                      f"{gmm_rep}:323"),
@@ -1461,6 +1710,11 @@ def main():
     dev = torch.device("cuda")
     cfg = LlamaConfig.llama3_8b()
     launches = {}
+
+    def record(counts):
+        """Each kernel's launches from the first phase that launched it (a
+        phase reads 0 for a kernel off its path)."""
+        launches.update({k: v for k, v in counts.items() if not launches.get(k)})
 
     def counters(*names):
         return [entries[n][0] for n in names]
@@ -1496,7 +1750,7 @@ def main():
         "quantized_matmul", "quantized_matmul_w8a8"),
         dict(linear, quantized_kv=True, w8a8=True), prompts, [(1, 0), (3, 0)],
         matmul=w8a8_plain)
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     done("5")
 
     # 7. the paged deployment (scripts/bench_engine.py --paged) on the same
@@ -1515,7 +1769,7 @@ def main():
                       "flush_staging_int8", "paged_decode_attention", "flush_staging_paged",
                       "write_kv_token"),
         after=check_pages)
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     del params, head
     gc.collect()
     torch.cuda.empty_cache()
@@ -1528,7 +1782,7 @@ def main():
         "rms_norm", "llama_rope", "flash_fwd", "decode_attention_int8", "flush_staging_int8",
         "quantized_matmul4"), dict(linear, quantized_kv=True), prompts[1::2], [(0, 0), (1, 0)],
         matmul=functools.partial(qmatmul, plain=True))
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1554,7 +1808,7 @@ def main():
         dict(linear, quantized_kv=True, w8a8=True), mix_prompts, [(1, 0), (3, 0)],
         matmul=lambda x, w: qmatmul(x, w, plain=True, w8a8=w is not head),
         forward_kw=dict(w8a8=True))
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     print(f"phase 9a memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB "
           "(max_memory_allocated)")
@@ -1572,7 +1826,7 @@ def main():
     counts = serve_and_check("phase 9b", params, mcfg, counters(
         *moe_counters, "decode_attention", "flush_staging", "grouped_matmul"), linear,
         mix_prompts, [(1, 0), (3, 0)])
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     params = quantize_params(params, wbits=4)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1580,7 +1834,7 @@ def main():
         *moe_counters, "decode_attention_int8", "flush_staging_int8", "quantized_matmul4",
         "grouped_matmul4"), dict(linear, quantized_kv=True), mix_prompts[1::2],
         [(0, 0), (1, 0)], matmul=functools.partial(qmatmul, plain=True))
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    record(counts)
     print(f"phase 9b memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           "(max_memory_allocated)")
     del params
@@ -1590,11 +1844,22 @@ def main():
 
     # 8. training, on the memory the serving phases freed
     phase_grad_parity()
-    train = counters(*TRAIN_LAUNCHES_PER_STEP)
-    counts = phase_train(train, [c for name, (c, *_) in entries.items()
-                                 if name not in TRAIN_LAUNCHES_PER_STEP])
-    launches.update({k: v for k, v in counts.items() if k not in launches})
+    counts = phase_train("phase 8b", LlamaConfig.llama3_8b(n_layers=8), TRAIN_LAUNCHES_PER_STEP,
+                         counters(*TRAIN_LAUNCHES_PER_STEP),
+                         [c for name, (c, *_) in entries.items()
+                          if name not in TRAIN_LAUNCHES_PER_STEP])
+    record(counts)
     done("8")
+
+    # 10. MoE training: one Mixtral layer's gradients, then a 2-layer
+    #     Mixtral at full width through the grouped path
+    phase_moe_grads()
+    counts = phase_train("phase 10b", LlamaConfig.mixtral_8x7b(n_layers=2, moe_impl="grouped"),
+                         MOE_TRAIN_LAUNCHES_PER_STEP, counters(*MOE_TRAIN_LAUNCHES_PER_STEP),
+                         [c for name, (c, *_) in entries.items()
+                          if name not in MOE_TRAIN_LAUNCHES_PER_STEP])
+    record(counts)
+    done("10")
     print(f"phase seconds: {seconds}; total {sum(seconds.values()):.1f}")
 
     line = {"kernels": [

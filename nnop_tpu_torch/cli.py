@@ -1,9 +1,10 @@
-"""Command-line entry points of the port: train on the dense configs;
-generate / serve / profile on the dense and the MoE configs (`tiny_moe`,
-`mixtral`), with floating-point weights or, with `--wbits 8|4`, int8 or
-packed int4 weights, and with `--int8-kv`, an int8 KV cache. Usage:
+"""Command-line entry points of the port: train / generate / serve /
+profile on the dense and the MoE configs (`tiny_moe`, `mixtral`), with
+floating-point weights or, with `--wbits 8|4`, int8 or packed int4
+weights, and with `--int8-kv`, an int8 KV cache. Usage:
 
     python -m nnop_tpu_torch.cli train --model tiny --device cpu --steps 50 --seq 128
+    python -m nnop_tpu_torch.cli train --model tiny_moe --device cpu
     python -m nnop_tpu_torch.cli generate --model tiny --device cpu --prompt "abcabc"
     python -m nnop_tpu_torch.cli serve --model 8b --port 8080
     python -m nnop_tpu_torch.cli serve --model 8b --wbits 8 --int8-kv
@@ -20,13 +21,18 @@ weights: Mixtral-8x7B takes 93 GB in bf16, 47 GB with `--wbits 8`.
 
 `train` is the JAX CLI's single-device training (nnop_tpu/cli.py:cmd_train
 without --mesh, --fsdp and --remat, which need the mesh): AdamW on a
-loss whose gradients run through the backward kernels. `--model 8b`
-does not fit one 80 GB card at full depth, as it does not fit one chip
-without a mesh in JAX: 8.03 B parameters at 2 bytes (bf16 weight) + 2
-(bf16 gradient) + 8 (f32 AdamW moments) are 96 GB before any
-activation, so it ends in a CUDA out-of-memory error. Llama-3-8B at full
-width trains on one card with its depth cut (chip_smoke.py phase 8 runs
-train_loop with 8 layers).
+loss whose gradients run through the backward kernels, for the dense and
+the MoE configs (`tiny_moe`, `mixtral`: the router's aux term in the
+loss; the config's `moe_impl`, "einsum" by default as in JAX, or
+"grouped", whose products' backward runs kernel I and the dw kernel).
+Neither 8B nor Mixtral fits one 80 GB card at full depth, as neither
+fits one chip without a mesh in JAX: at 2 bytes a parameter (bf16
+weight) + 2 (bf16 gradient) + 8 (f32 AdamW moments), Llama-3-8B's 8.03 B
+parameters take 96 GB and Mixtral-8x7B's 46.7 B take 560 GB before any
+activation, so `--model 8b` and `--model mixtral` end in a CUDA
+out-of-memory error. At full width they train on one card with their
+depth cut (chip_smoke.py phase 8 runs train_loop on 8 layers of
+Llama-3-8B, phase 10 on 2 layers of Mixtral).
 """
 
 from __future__ import annotations
@@ -37,7 +43,6 @@ import time
 import torch
 
 _CONFIGS = ("tiny", "tiny_moe", "8b", "mixtral")
-_TRAIN_CONFIGS = ("tiny", "8b")  # MoE training is not ported yet
 
 
 def _config(name):
@@ -218,7 +223,7 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train")
-    t.add_argument("--model", default="tiny", choices=_TRAIN_CONFIGS)
+    t.add_argument("--model", default="tiny", choices=_CONFIGS)
     t.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     t.add_argument("--steps", type=int, default=50)
     t.add_argument("--batch", type=int, default=4)

@@ -11,7 +11,8 @@ the projections and the MLP are plain `torch.matmul` products, as the JAX
 package leaves them to XLA, unless the `matmul=` hook routes them (the
 quantized products: models/quantized.py:qmatmul). A Mixtral layer's MLP
 is the routed mixture of experts of models/moe.py (its grouped path runs
-kernel I). `forward(..., plain=True)`
+kernel I, and in the backward kernel I and the dw kernel); `loss_fn`
+adds its router's aux term. `forward(..., plain=True)`
 runs the plain versions of the ops instead, the reference the kernels are
 held to on the card. `init_quantized_params` builds random int8 or int4
 weights directly, without a floating-point copy.
@@ -435,17 +436,17 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None, kpad_mask=None,
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, *, plain: bool = False):
-    """Next-token cross-entropy, the mean over all positions
-    (nnop_tpu/models/llama.py:loss_fn): tokens, targets (B, L) int ->
-    scalar f32. plain as in forward. MoE configs raise: MoE training (the
-    router's aux term, the grouped products' backward) is the next slice
-    of the port."""
-    if cfg.n_experts is not None:
-        raise NotImplementedError("MoE training is not ported yet")
-    logits = forward(params, tokens, cfg, plain=plain)
+    """Next-token cross-entropy, the mean over all positions, plus the
+    router load-balancing aux for MoE configs, router_aux_coef * aux /
+    n_layers (nnop_tpu/models/llama.py:loss_fn): tokens, targets (B, L)
+    int -> scalar f32. plain as in forward."""
+    logits, aux = forward(params, tokens, cfg, plain=plain, return_aux=True)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return -ll.mean()
+    loss = -ll.mean()
+    if cfg.n_experts is not None:
+        loss = loss + cfg.router_aux_coef * aux / cfg.n_layers
+    return loss
 
 
 class Llama(nn.Module):

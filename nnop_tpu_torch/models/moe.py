@@ -15,11 +15,15 @@ per expert), and the engine's fused w_gateup (E, d, 2 * hidden).
   dropless; the path the engine serves, and the one quantized or fused
   experts always take.
 
-The layer never syncs the host: the padded row count Tp is a static
-bound, and the counts, sort and block lookup stay on the device
+Both paths train with plain (bf16 or f32) experts: the grouped products'
+backward runs kernel I for dx and the dw kernel (csrc/gmm_dw.cu), and
+the router's weight gets its gradient through the combine weights and
+the aux loss. The layer never syncs the host: the padded row count Tp is
+a static bound, and the counts, sort and block lookup stay on the device
 (scatter-adds rather than `bincount`, whose CUDA version reads its
-maximum back). `plain=True` runs the grouped products' plain versions on
-any device (the reference the kernels are held to on the card).
+maximum back). `plain=True` runs the grouped products' plain versions,
+forward and backward, on any device (the reference the kernels are held
+to on the card).
 `moe_mlp_local_experts` (serving tensor parallelism) is not ported yet.
 """
 
@@ -186,9 +190,7 @@ def moe_mlp_grouped(layer, h, cfg, *, act, block_m: int | None = None, w8a8: boo
             if plain:
                 return naive.naive_grouped_matmul4(x, wts, groups, block_m)
             return _grouped_matmul_q4(x, wts, groups, block_n=2048, **kw)
-        if plain:
-            return naive.naive_grouped_matmul(x, wts, groups, block_m)
-        return grouped_matmul(x, wts, groups, **kw)
+        return grouped_matmul(x, wts, groups, plain=plain, **kw)
 
     if "w_gateup" in layer:  # engine-fused experts: one pass for gate|up
         gu = gmm(xs, layer["w_gateup"]).float()

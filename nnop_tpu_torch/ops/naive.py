@@ -472,6 +472,26 @@ def naive_grouped_matmul(x, w, block_groups, block_m: int):
                        lambda sel, e: x[sel].to(ct).float() @ w[e].to(ct).float())
 
 
+def naive_grouped_matmul_dw(x, dy, block_groups, block_m: int, n_experts: int,
+                            block_rows=None):
+    """The grouped product's weight gradient: dw[e] = the sum over expert
+    e's blocks of x_b^T dy_b, x (Tp, K) and dy (Tp, N) in the compute
+    dtype, fp32 sums; (E, K, N) in x.dtype, exact zeros for an expert with
+    no row. block_rows: the real rows of each block (rows past them count
+    as zero)."""
+    ct = _compute_dtype(x)
+    Tp, K = x.shape
+    row_expert = block_groups.to(x.device).long().repeat_interleave(block_m)
+    if block_rows is not None:
+        real = torch.arange(block_m, device=x.device)[None] < block_rows.to(x.device)[:, None]
+        row_expert = torch.where(real.reshape(-1), row_expert, -1)
+    dw = torch.zeros((n_experts, K, dy.shape[1]), dtype=x.dtype, device=x.device)
+    for e in range(n_experts):
+        sel = row_expert == e
+        dw[e] = (x[sel].to(ct).float().T @ dy[sel].to(ct).float()).to(x.dtype)
+    return dw
+
+
 def naive_grouped_matmul_quantized(x, w: QTensor, block_groups, block_m: int, out_dtype=None):
     """Grouped naive_quantized_matmul: w values (E, K, N) int8 with scale
     (E, N) (axis 1)."""

@@ -464,17 +464,20 @@ class Engine:
     for int8 weights; `paged`: KV in shared page pools of `page_size`
     tokens (`n_pages` of them; both sized from max_seq and max_batch by
     default); `prefix_cache` (paged only): share prompt-prefix pages.
+    `fuse_weights=False` takes params that are already fused;
+    `interleave_prefill=False` admits a long prompt in one step instead of
+    `prefill_chunks_per_step` chunks per step.
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, max_batch=8, max_seq=2048,
                  quantized_kv=False, eos_id=None, tokenizer=None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  min_p: float = 0.0, seed: int = 0, chunk_size: int = 8,
-                 logprobs: bool = False, paged: bool = False,
+                 fuse_weights: bool = True, logprobs: bool = False, paged: bool = False,
                  page_size: Optional[int] = None, n_pages: Optional[int] = None,
                  prefill_chunk: int = 512, prefill_chunks_per_step: int = 4,
                  pipeline_depth: int = 2, spec_k: int = 0, prefix_cache: bool = False,
-                 max_queue: int = 256, w8a8: bool = True):
+                 max_queue: int = 256, w8a8: bool = True, interleave_prefill: bool = True):
         for name, on in (("spec_k > 0", spec_k > 0), ("logprobs=True", logprobs)):
             if on:
                 raise NotImplementedError(f"Engine({name}) is not ported yet")
@@ -495,7 +498,7 @@ class Engine:
             raise ValueError(f"chunk_size must be in [1, {STAGE_W}]")
         self.chunk_size = chunk_size
         self.device = params["embed"].device
-        self.params = fuse_decode_weights(params)
+        self.params = fuse_decode_weights(params) if fuse_weights else params
         # chunk-dispatch pipelining: keep (depth-1) chunks in flight and
         # collect their tokens one step late; EOS detection lags a chunk,
         # so a finishing slot wastes at most (depth-1) extra chunks. The
@@ -506,6 +509,7 @@ class Engine:
         self._inflight: list[tuple] = []
         # incremental admission: slot -> in-progress chunked-prefill state
         self.prefill_chunks_per_step = max(1, int(prefill_chunks_per_step))
+        self.interleave_prefill = interleave_prefill
         self._admitting: dict[int, dict] = {}
         self._admit_rr = -1
         if max_queue < 1:
@@ -801,7 +805,8 @@ class Engine:
         Long prompts admit INCREMENTALLY: their chunked prefill is split
         across engine steps — `prefill_chunks_per_step` chunks per step(),
         round-robin over admitting slots — so active decode streams keep
-        producing tokens while a long prompt admits. Short prompts admit
+        producing tokens while a long prompt admits (with
+        interleave_prefill=False, every chunk in this step). Short prompts admit
         in one step, and so do prefix-cache hits (only the remainder is
         prefilled)."""
         for slot in range(self.max_batch):
@@ -847,9 +852,10 @@ class Engine:
                 L = st["L"]
                 logits = st["logits"][:, (L - 1) - (st["n_chunks"] - 1) * C]
                 self._finalize_admit(pick, st["req"], logits, st["ks"], st["vs"], L, 0)
-            burst += 1
-            if burst >= self.prefill_chunks_per_step:
-                break
+            if self.interleave_prefill:
+                burst += 1
+                if burst >= self.prefill_chunks_per_step:
+                    break
 
     def _admit_one(self, slot, req, L, n_match=0, shared=()):
         """Single-step admission, then finalize: a prefix hit seeds the

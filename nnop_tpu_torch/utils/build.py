@@ -60,6 +60,8 @@ SIGNATURES = {
     # x, xs, w, scale, out, block_groups, block_rows, M, N, K, block_m, mode,
     # group, pack_block, out_is_f32, stream
     "nnop_gmm": [_P] * 7 + [_I] * 8 + [_P],
+    # x, dy, dw, block_groups, block_rows, M, K, N, E, block_m, stream
+    "nnop_gmm_dw": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

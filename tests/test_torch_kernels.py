@@ -13,9 +13,10 @@ by max(1, max|plain|) for the quantized products (bf16 sums over K in
 another order; kernel I's grouped products as these); the flushes (also
 the int8 and paged ones), the one-token write and the W8A8 products with
 f32 output (G and kernel I's W8A8 mode) must be bit-exact. The
-training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV) are held
-to the plain forward and backward formulas of ops/naive.py, and the
-attention backward must give the same bits on two runs.
+training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV, the
+grouped product's dx through kernel I and its dw kernel) are held to the
+plain forward and backward formulas of ops/naive.py, and the attention
+backward and the grouped dw must give the same bits on two runs.
 """
 
 import pytest
@@ -33,6 +34,7 @@ from nnop_tpu_torch.ops.flash_attention_bwd import (
 from nnop_tpu_torch.ops.grouped_matmul import (
     _grouped_matmul_q4,
     grouped_matmul,
+    grouped_matmul_dw,
     grouped_matmul_quantized,
     grouped_matmul_w8a8,
     quantize4_experts,
@@ -315,6 +317,33 @@ def test_grouped_matmul_kernel(gen, case, mode):
         if rows is not None:  # the skipped tiles hold exact zeros
             real = torch.arange(bm, device="cuda")[None] < br[:, None]
             assert (got[~real.reshape(-1)] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_backward_kernels(gen, case):
+    """The grouped product's backward: dw (csrc/gmm_dw.cu) and dx (kernel I
+    on the transposed experts) against their plain versions; an expert
+    without a row gets dw exactly 0 (over memory filled with NaN first);
+    two dw runs give the same bits; the autograd Function launches kernel
+    I twice (forward, dx) and the dw kernel once."""
+    x, w, bg, br, bm = _grouped_inputs(gen, case)
+    E, K, N = w.shape
+    real = torch.arange(bm, device="cuda")[None] < br[:, None]
+    dy = _bf(gen, x.shape[0], N) * real.reshape(-1, 1).to(torch.bfloat16)
+    junk = torch.full((E, K, N), float("nan"), dtype=torch.bfloat16, device="cuda")
+    del junk  # the allocator hands its block to dw
+    dw = grouped_matmul_dw(x, dy, bg, block_m=bm, n_experts=E, block_rows=br)
+    hit = {int(g) for g, r in zip(bg.tolist(), br.tolist()) if r > 0}
+    assert all((dw[e] == 0).all() for e in range(E) if e not in hit)
+    _close_scaled(dw, naive.naive_grouped_matmul_dw(x, dy, bg, bm, E, br))
+    assert torch.equal(dw, grouped_matmul_dw(x, dy, bg, block_m=bm, n_experts=E, block_rows=br))
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = (grouped_matmul.launches, grouped_matmul.dx_launches, grouped_matmul_dw.launches)
+    grouped_matmul(xg, wg, bg, block_m=bm, block_rows=br).backward(dy)
+    after = (grouped_matmul.launches, grouped_matmul.dx_launches, grouped_matmul_dw.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 1, 1)
+    _close_scaled(xg.grad, naive.naive_grouped_matmul(dy, w.transpose(1, 2).contiguous(), bg, bm))
+    assert torch.equal(wg.grad, dw)
 
 
 # ---- training: A with rstd, A-bwd, B backward, dQ and dK/dV -------------

@@ -67,7 +67,7 @@ def test_tiny_logits_match_jax():
     jcfg = JLlamaConfig.tiny(dtype=jnp.float32)
     jp = j_init_params(jax.random.key(2), jcfg)
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 19)).astype(np.int32)
-    want = j_forward(jp, jnp.asarray(tokens), jcfg)
+    want = jax.jit(j_forward, static_argnums=2)(jp, jnp.asarray(tokens), jcfg)
     model = Llama(LlamaConfig.tiny(dtype=torch.float32),
                   params_from_numpy(jax.tree.map(np.asarray, jp)))
     got = model(torch.from_numpy(tokens).long())

@@ -77,9 +77,9 @@ def _leaf(a):
 def test_rms_norm_grads_match_jax(offset):
     rng = np.random.default_rng(0)
     x, w, dy = _rand(rng, 3, 5, 64), 0.5 + _rand(rng, 64), _rand(rng, 3, 5, 64)
-    _, vjp = jax.vjp(lambda x, w: j_rms_norm(x, w, 1e-5, offset=offset), jnp.asarray(x),
-                     jnp.asarray(w))
-    jdx, jdw = vjp(jnp.asarray(dy))
+    jdx, jdw = jax.jit(lambda x, w, dy: jax.vjp(
+        lambda x, w: j_rms_norm(x, w, 1e-5, offset=offset), x, w)[1](dy))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(dy))
     tx, tw = _leaf(x), _leaf(w)
     dx, dw = torch.autograd.grad(rms_norm(tx, tw, 1e-5, offset=offset), (tx, tw),
                                  torch.from_numpy(dy))
@@ -92,8 +92,8 @@ def test_rope_grads_match_jax():
     q, k = _rand(rng, 2, 4, 7, 32), _rand(rng, 2, 2, 7, 32)
     dq, dk = _rand(rng, 2, 4, 7, 32), _rand(rng, 2, 2, 7, 32)
     cos, sin = (np.array(a) for a in JRotaryEmbedding(32)(jnp.arange(7)[None].repeat(2, 0) + 5))
-    _, vjp = jax.vjp(lambda q, k: j_llama_rope(q, k, cos, sin), jnp.asarray(q), jnp.asarray(k))
-    jdq, jdk = vjp((jnp.asarray(dq), jnp.asarray(dk)))
+    jdq, jdk = jax.jit(lambda q, k, d: jax.vjp(lambda q, k: j_llama_rope(q, k, cos, sin), q, k)[1](
+        d))(jnp.asarray(q), jnp.asarray(k), (jnp.asarray(dq), jnp.asarray(dk)))
     tq, tk = _leaf(q), _leaf(k)
     got = torch.autograd.grad(llama_rope(tq, tk, torch.from_numpy(cos), torch.from_numpy(sin)),
                               (tq, tk), (torch.from_numpy(dq), torch.from_numpy(dk)))
@@ -122,9 +122,9 @@ def test_flash_grads_match_jax(case):
     if kpad:
         mask[:, KL - 11:] = False
     jmask = jnp.asarray(mask) if kpad else None
-    _, vjp = jax.vjp(lambda q, k, v: j_flash_attention(q, k, v, causal=causal, kpad_mask=jmask),
-                     *(jnp.asarray(a) for a in (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    want = jax.jit(lambda q, k, v, do: jax.vjp(
+        lambda q, k, v: j_flash_attention(q, k, v, causal=causal, kpad_mask=jmask), q, k, v)[1](do)
+    )(*(jnp.asarray(a) for a in (q, k, v, do)))
     tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
     o = flash_attention(tq, tk, tv, causal=causal,
                         kpad_mask=torch.from_numpy(mask) if kpad else None)
@@ -186,6 +186,11 @@ def test_plain_rms_norm_and_rope_bwd_match_autograd(offset):
         torch.testing.assert_close(g, wt, atol=1e-5, rtol=0)
 
 
+# the JAX loss's value_and_grad, compiled once for the loss and the loop
+# tests (the same config and shapes)
+_J_VALUE_AND_GRAD = jax.jit(jax.value_and_grad(j_loss_fn), static_argnums=3)
+
+
 def _tiny_jax(seed=0, **kw):
     jcfg = JLlamaConfig.tiny(dtype=jnp.float32, **kw)
     return jcfg, j_init_params(jax.random.key(seed), jcfg)
@@ -202,8 +207,7 @@ def test_loss_and_grads_match_jax():
     jcfg, jp = _tiny_jax(2)
     rng = np.random.default_rng(5)
     toks, tgts = (rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32) for _ in range(2))
-    jloss, jgrads = jax.jit(jax.value_and_grad(j_loss_fn), static_argnums=3)(
-        jp, jnp.asarray(toks), jnp.asarray(tgts), jcfg)
+    jloss, jgrads = _J_VALUE_AND_GRAD(jp, jnp.asarray(toks), jnp.asarray(tgts), jcfg)
     params = _to_port(jp)
     loss = loss_fn(params, torch.from_numpy(toks), torch.from_numpy(tgts),
                    LlamaConfig.tiny(dtype=torch.float32))
@@ -244,8 +248,9 @@ def test_adamw_matches_jax(kind):
     jstate = jopt.init(jparams)
     params = jax.tree.map(torch.from_numpy, p)
     state = opt.init(params)
+    update = jax.jit(jopt.update)
     for g in gs:
-        jparams, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate, jparams)
+        jparams, jstate = update(jax.tree.map(jnp.asarray, g), jstate, jparams)
         params, state = opt.update(jax.tree.map(torch.from_numpy, g), state, params)
     assert state["count"] == int(jstate["count"]) == 2
     for got, want in zip(tree_leaves(params) + tree_leaves(state["mu"]) + tree_leaves(state["nu"]),
@@ -272,24 +277,20 @@ def test_dataio_matches_jax():
 
 
 def test_train_loop_matches_jax():
-    """3 steps of cli.train_loop against the JAX CLI's loop from the same
-    params on the CLI's synthetic stream."""
+    """3 steps of cli.train_loop against the JAX CLI's loop (value_and_grad
+    of its loss_fn, then AdamW's update; each jitted) from the same params
+    on the CLI's synthetic stream."""
     jcfg, jp = _tiny_jax(0)
     seq, batch = 16, 2
     rows = dataio.pack_tokens([[(7 * i + 3) % jcfg.vocab_size for i in range(seq * 64)]],
                               seq_len=seq)
     jopt = JAdamW(lr=1e-3)
     jstate = jopt.init(jp)
-
-    @jax.jit
-    def step(params, state, toks, tgts):
-        loss, grads = jax.value_and_grad(j_loss_fn)(params, toks, tgts, jcfg)
-        params, state = jopt.update(grads, state, params)
-        return params, state, loss
-
+    update = jax.jit(jopt.update)
     jlosses = []
     for toks, tgts in j_dataio.batches(rows, batch, seed=0):
-        jp, jstate, loss = step(jp, jstate, jnp.asarray(toks), jnp.asarray(tgts))
+        loss, grads = _J_VALUE_AND_GRAD(jp, jnp.asarray(toks), jnp.asarray(tgts), jcfg)
+        jp, jstate = update(grads, jstate, jp)
         jlosses.append(float(loss))
         if len(jlosses) == 3:
             break
