@@ -1,5 +1,6 @@
 """Drive the port's serving and training paths once on one H100:
-Llama-3-8B and Mixtral-8x7B, each served and trained.
+Llama-3-8B and Mixtral-8x7B, each served and trained; Mistral-7B and
+Gemma-2-2B served.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,15 @@ non-zero:
      computes the same function timed beside it where there is one. The
      paged modes of D and E run at the paged deployment's shapes (phase 7),
      and E's one-token write beside them; kernel I's four modes at
-     Mixtral's decode and prefill shapes (phase 9).
+     Mixtral's decode and prefill shapes (phase 9); C, D and E with the
+     sliding window, the softcap and head dim 256 at Mistral-7B's and
+     Gemma-2-2B's shapes (phase 11: C at a chunk past the window, with
+     and without it; C causal at L 8192; D's four modes at lengths on
+     both sides of the window; q scaled up so that the softcap binds),
+     held to a relative error per 64-row tile of each head, A and B at
+     Gemma-2's widths, and planted faults that must read above that
+     limit: the plain version with the window one key (and one 32-key
+     tile) too wide, or without the softcap.
   4. bf16 path: Llama-3-8B at full width and depth (random bf16 weights
      from a seeded torch.Generator on the card) behind the port's
      EngineServer; 4 concurrent /v1/completions requests (one through
@@ -59,6 +68,18 @@ non-zero:
      path; (b) phase 8b's trainer on Mixtral-8x7B at full width with 2
      layers (moe_impl="grouped"; full depth needs 560 GB for weights,
      gradients and moments).
+ 11. the families at full width and full depth, after 10, greedy through
+     EngineServer on random bf16 weights, prompts of 300, 4600 and 6200
+     tokens x 32 new (two admitted in chunks past the window, two decoding
+     past it): (a) Mistral-7B (window 4096), Engine(max_batch=4,
+     max_seq=8192), linear bf16 cache; (b) the same weights paged with the
+     int8 cache, the two long prompts, every page back; (c) Gemma-2-2B
+     (head dim 256, window 4096 on every other layer, softcaps 50 and 30)
+     on (a)'s engine; (d) a 2-layer Mistral-7B written as a local HF
+     directory (config.json, two bf16 shards), read back by config_from_hf
+     and load_hf_llama: greedy streams identical to the same weights served
+     directly. Window launches of C and D in (a)-(c), softcap launches in
+     (c), first-token cosine >= 0.99 on every prompt, peak memory.
 Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
 (the new kernel) and dx (kernel I on the transposed experts), a planted
 fault, two bit-identical dw runs, experts without a row.
@@ -369,6 +390,7 @@ def phase_kernels():
     phase_grouped(p3, gen, randn)
     phase_grouped_bwd(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
+    phase_family_kernels(p3, gen, randn)
     return p3.results
 
 
@@ -679,6 +701,277 @@ def phase_paged_kernels(p3, gen, randn):
                   bound(2 * nbytes(new) + nbytes(pos), 0, "f32"), lib, main)
         del cache, got, want
     torch.cuda.empty_cache()
+
+
+WINDOW = 4096  # Mistral-7B's and Gemma-2-2B's sliding window
+# the decode shapes of phase 11: four slots on both sides of the window,
+# five staged rows
+FAMILY_LENS, FAMILY_STAGED = [300, 4500, 6100, 8000], 5
+ATTN_REL_TOL = 1e-2
+ATTN_REL_WHY = ("|got - plain| / |plain| per 64-row query tile of each head (a slot's head in "
+                "decode), as outputs averaging thousands of keys are small; bf16 o and P round "
+                "by <= 2^-9. On an H100 80GB HBM3 at 700 W the kernels read at most 4.2e-3 and "
+                "planted faults 0.12 to 1.03")
+# the softcap binds where q is scaled up: scores of std ~q_scale reach
+# several times the cap
+BIG_Q = 40.0
+
+
+def _decode_mode(head_dim, int8, E, q8, win, cap):
+    """The decode entries' modes (the keys of mode_launches): Mistral's
+    window at head dim 128, and any call at head dim 256 (Gemma-2's, with
+    the softcap)."""
+    return E == head_dim and q8 == int8 and (win or head_dim == 256)
+
+
+def _planted(name, what, err):
+    """A planted fault: the kernel's output against the plain version of a
+    wrong computation must read above the tolerance."""
+    print(f"phase 3 {name} [planted fault: {what}]: tile relative error {err:.3e} (must "
+          f"exceed {ATTN_REL_TOL:g})")
+    check(err > ATTN_REL_TOL, f"{name}: the planted fault ({what}) reads {err}")
+
+
+def _heads_in_groups(fn, q, k, v, groups, **kw):
+    """fn(q, k, v, **kw) over `groups` slices of the query heads and their
+    KV heads, concatenated: the plain attention on the same inputs with
+    its f32 score tensor cut to 1/groups."""
+    qs, ks, vs = (t.chunk(groups, dim=1) for t in (q, k, v))
+    return torch.cat([fn(a, b, c, **kw) for a, b, c in zip(qs, ks, vs)], dim=1)
+
+
+def phase_family_kernels(p3, gen, randn):
+    """Phase 3 at Mistral-7B's and Gemma-2-2B's serving shapes: C with the
+    sliding window (chunked prefill past it), the softcap and head dim
+    256, and causal at L 8192; D with the window, the softcap and head dim
+    256 in its four modes; E at head dim 256; A and B at Gemma-2's widths;
+    and planted window faults for C and D."""
+    import torch.nn.functional as F
+
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.attention_decode import decode_attention
+    from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
+    from nnop_tpu_torch.ops.flash_attention import flash_fwd
+    from nnop_tpu_torch.ops.kv_write import flush_staging
+    from nnop_tpu_torch.ops.rms_norm import rms_norm
+    from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    # A and B at Gemma-2's widths: rows of 2304 with offset 1; head dim 256
+    w = (0.1 * torch.randn(2304, generator=gen, device=dev)).to(bf)
+    for rows in (4, 512):
+        x = randn(rows, 2304)
+        err = max_err(rms_norm(x, w, 1e-6, offset=1.0),
+                      naive.naive_rms_norm(x, w, eps=1e-6, offset=1.0))
+        p3.report("rms_norm", f"Gemma-2 ({rows}, 2304) bf16, offset 1", err, BF16_TOL,
+                  BF16_TOL_WHY, device_ms(lambda: rms_norm(x, w, 1e-6, offset=1.0)),
+                  device_ms(lambda: naive.naive_rms_norm(x, w, eps=1e-6, offset=1.0)),
+                  bound(2 * nbytes(x) + nbytes(w), 4 * x.numel(), "f32"))
+    rope = RotaryEmbedding(256, 10000.0)
+    for B, L, pos in ((4, 1, [[n] for n in FAMILY_LENS]), (1, 512, [list(range(5632, 6144))])):
+        q, k = randn(B, 8, L, 256, scale=0.5), randn(B, 4, L, 256, scale=0.5)
+        cos, sin = rope(torch.tensor(pos, device=dev))
+        got, want = llama_rope(q, k, cos, sin), naive.naive_rope(q, k, cos, sin)
+        p3.report("llama_rope", f"Gemma-2 q ({B}, 8, {L}, 256) bf16",
+                  max(max_err(got[0], want[0]), max_err(got[1], want[1])), BF16_TOL,
+                  BF16_TOL_WHY, device_ms(lambda: llama_rope(q, k, cos, sin)),
+                  device_ms(lambda: naive.naive_rope(q, k, cos, sin)),
+                  bound(2 * nbytes(q, k) + nbytes(cos, sin), 3 * (q.numel() + k.numel()), "f32"))
+
+    # C: causal from a row offset over a key buffer with kpad, as the
+    # engine's chunked prefill calls it; the bound counts the (row, key)
+    # pairs the mask keeps and the K/V rows some row sees. Each fault is
+    # (what, the plain version's wrong arguments).
+    def flash_case(name, case, QH, KH, QL, KL, E, offset, n_valid, window, softcap, main=False,
+                   groups=1, lib=True, q_scale=1.0, faults=()):
+        q, k, v = randn(1, QH, QL, E, scale=q_scale), randn(1, KH, KL, E), randn(1, KH, KL, E)
+        kw = dict(causal=True, scale=E ** -0.5, causal_offset=offset, window=window,
+                  softcap=softcap)
+        if n_valid < KL:
+            kw["kpad_mask"] = (torch.arange(KL, device=dev) < n_valid)[None]
+        o, lse = flash_fwd(q, k, v, **kw)
+
+        def plain(**over):
+            return _heads_in_groups(naive.naive_attention, q, k, v, groups, **dict(kw, **over))
+
+        want = plain()
+        rows = offset + torch.arange(QL, device=dev)[:, None]
+        cols = torch.arange(KL, device=dev)[None]
+        mask = (cols <= rows) & (cols < n_valid)
+        if window is not None:
+            mask &= rows - cols < window
+        moved = 2 * nbytes(q) + nbytes(lse) + 2 * KH * int(mask.any(0).sum()) * E * 2
+        library = None
+        if lib and softcap is None:  # plain causal as is_causal, any other mask as a tensor
+            causal_only = QL == KL and offset == 0 and n_valid == KL and window is None
+            sdpa_kw = dict(is_causal=True) if causal_only else dict(attn_mask=mask)
+            library = library_ms(name, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=E ** -0.5, enable_gqa=True, **sdpa_kw))
+        p3.report(name, case, tile_rel_err(o, want), ATTN_REL_TOL, ATTN_REL_WHY + " (o bf16)",
+                  device_ms(lambda: flash_fwd(q, k, v, **kw)), device_ms(plain, n=2, reps=3),
+                  bound(moved, 4 * E * QH * int(mask.sum()), "bf16"), library, main,
+                  measure="tile relative error", abs_err=max_err(o, want))
+        del want
+        for what, over in faults:
+            _planted(name, what, tile_rel_err(o, plain(**over)))
+
+    no_cap = ("the plain version without the softcap", dict(softcap=None))
+
+    def wide(w):  # a window one key tile too wide
+        return (f"window {w} against plain {w + 32}", dict(window=w + 32))
+
+    # Mistral's chunked prefill past the window: chunk 11 of a 6200-token
+    # prompt (rows 5632..6143) over the engine's 6656-key buffer
+    chunk = dict(QH=32, KH=8, QL=512, KL=6656, E=128, offset=5632, n_valid=6144)
+    m_chunk = "Mistral chunk: q (1, 32, 512, 128) at offset 5632, kv (1, 8, 6656, 128), kpad < 6144"
+    flash_case("flash_fwd_window", f"{m_chunk}, window 4096", **chunk, window=WINDOW, softcap=None,
+               main=True, faults=[wide(WINDOW)])
+    flash_case("flash_fwd_window", "the same chunk without the window (every key tile up to "
+               "the diagonal)", **chunk, window=None, softcap=None)
+    flash_case("flash_fwd_window", "the same chunk, window 4096, softcap 5 (binding: q x 4)",
+               **chunk, window=WINDOW, softcap=5.0, q_scale=4.0, faults=[no_cap])
+    # causal self-attention at L 8192, the first entry past L 4096 (no
+    # serving caller: a prefill past 4096 tokens runs in chunks)
+    flash_case("flash_fwd", "causal, q = kv (1, 32 | 8, 8192, 128) (row 6's long L)", 32, 8,
+               8192, 8192, 128, 0, 8192, None, None, groups=4)
+    # Gemma-2's geometry: its windowed layers (window and softcap) and its
+    # global ones (softcap only), at the same chunk of a 6200-token prompt;
+    # q scaled so that the softcap binds
+    g2 = dict(QH=8, KH=4, QL=512, KL=6656, E=256, offset=5632, n_valid=6144)
+    g_chunk = "Gemma-2 chunk: q (1, 8, 512, 256) at offset 5632, kv (1, 4, 6656, 256)"
+    flash_case("flash_fwd_e256_softcap", f"{g_chunk}, softcap 50 (binding: q x {BIG_Q:g}), window "
+               "4096", **g2, window=WINDOW, softcap=50.0, q_scale=BIG_Q, main=True,
+               faults=[no_cap, wide(WINDOW)])
+    flash_case("flash_fwd_e256_softcap", f"the same, softcap 50 (binding), no window (a global "
+               "layer)", **g2, window=None, softcap=50.0, q_scale=BIG_Q, faults=[no_cap])
+    flash_case("flash_fwd_e256_softcap", "the same, softcap 5 (binding: q x 4), no window", **g2,
+               window=None, softcap=5.0, q_scale=4.0, faults=[no_cap])
+    flash_case("flash_fwd_e256_softcap", "the same, window 4096 without the softcap", **g2,
+               window=WINDOW, softcap=None, faults=[wide(WINDOW)])
+    flash_case("flash_fwd_e256_softcap", "Gemma-2B MQA: q (1, 8, 300, 256), kv (1, 1, 300, 256), "
+               "causal", 8, 1, 300, 300, 256, 0, 300, None, None, lib=False)
+    for win in (17, 33):  # planted faults, and the tiny windows themselves
+        flash_case("flash_fwd_window", f"window {win}: q (1, 32, 300, 128) at offset 100, kv "
+                   "(1, 8, 400, 128)", 32, 8, 300, 400, 128, 100, 400, win, None, lib=False,
+                   faults=[(f"window {win} against plain {win + 1}", dict(window=win + 1))])
+    torch.cuda.empty_cache()
+
+    # D: Mistral's decode (E 128) with the window, Gemma-2's (E 256, KH 4)
+    # with the softcap and the window; lengths on both sides of the window
+    def decode_case(name, case, E, QH, KH, paged, quantized, window, softcap, main=False,
+                    lens=FAMILY_LENS, n_st=FAMILY_STAGED, q_scale=1.0, faults=()):
+        NL, B, page = 2, len(lens), 512
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if paged:  # the engine's page at max_seq 8192; a shuffled table
+            counts = [-(-n // page) for n in lens]
+            n_pages = sum(counts) + 4
+            perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+            table = torch.zeros((B, max(counts) + 1), dtype=torch.int32, device=dev)
+            used = 0
+            for b, c in enumerate(counts):
+                table[b, :c] = perm[used:used + c]
+                used += c
+            shape = (NL, n_pages, KH, page, E)
+        else:
+            shape = (NL, B, KH, -(-(max(lens) + 32) // 32) * 32, E)
+        if quantized:
+            caches = tuple(torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                         dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.01
+                           for _ in range(2))
+        else:
+            caches, scales = (randn(*shape), randn(*shape)), ()
+        q = randn(B, QH, 1, E, scale=q_scale)
+        stage = (randn(B, NL, KH, 32, E), randn(B, NL, KH, 32, E))
+        if paged:
+            op, ref = paged_decode_attention, naive.naive_paged_decode_attention
+            args = (q, *caches, table, lengths, *scales)
+        else:
+            op, ref = decode_attention, naive.naive_decode_attention
+            args = (q, *caches, lengths, *scales)
+        dkw = dict(k_stage=stage[0], v_stage=stage[1], staged_n=n_st, layer=NL - 1,
+                   window=window, softcap=softcap)
+        o = op(*args, **dkw)
+        want = ref(*args, **dkw)
+        # the live rows of this run: a cache row p < len with p >= len +
+        # n_st - window, a staged row w >= n_st - window (none for len 0)
+        first = [max(0, n + n_st - window) if window else 0 for n in lens]
+        cache_rows = sum(max(0, n - f) for n, f in zip(lens, first))
+        staged_rows = sum(min(n_st, window or n_st) for n in lens if n > 0)
+        moved = (KH * E * 2 * (cache_rows * caches[0].element_size() + staged_rows * 2)
+                 + 2 * nbytes(q) + nbytes(lengths) + (KH * 2 * 4 * cache_rows if quantized else 0)
+                 + (4 * sum(-(-(n - f) // page) for n, f in zip(lens, first)) if paged else 0))
+        p3.report(name, case, tile_rel_err(o, want), ATTN_REL_TOL, ATTN_REL_WHY,
+                  device_ms(lambda: op(*args, **dkw)),
+                  device_ms(lambda: ref(*args, **dkw), n=3, reps=3),
+                  bound(moved, 4 * E * QH * (cache_rows + staged_rows), "f32"), None, main,
+                  measure="tile relative error", abs_err=max_err(o, want))
+        for what, over in faults:
+            _planted(name, what, tile_rel_err(o, ref(*args, **dict(dkw, **over))))
+
+    shape_m = "q (4, 32, 1, 128), lengths 300/4500/6100/8000, staged 5"
+    shape_g = "q (4, 8, 1, 256), KH 4, lengths 300/4500/6100/8000, staged 5"
+    cap_g = f"softcap 50 (binding: q x {BIG_Q:g})"
+    for paged in (False, True):
+        for quantized in (False, True):
+            sfx = "_int8" if quantized else ""
+            kind = (f"{'int8' if quantized else 'bf16'} "
+                    f"{'pool (2, ·, ·, 512, E), shuffled table' if paged else 'cache'}")
+            pre = "paged_decode_attention" if paged else "decode_attention"
+            decode_case(f"{pre}_window{sfx}", f"Mistral: {shape_m}, {kind}, window 4096", 128, 32,
+                        8, paged, quantized, WINDOW, None, main=True, faults=[wide(WINDOW)])
+            decode_case(f"{pre}_window{sfx}", f"Mistral: {shape_m}, {kind}, window 4096, softcap 5 "
+                        "(binding: q x 4)", 128, 32, 8, paged, quantized, WINDOW, 5.0,
+                        q_scale=4.0, faults=[no_cap])
+            decode_case(f"{pre}_e256{sfx}", f"Gemma-2: {shape_g}, {kind}, {cap_g}, window 4096",
+                        256, 8, 4, paged, quantized, WINDOW, 50.0, main=True, q_scale=BIG_Q,
+                        faults=[no_cap, wide(WINDOW)])
+            decode_case(f"{pre}_e256{sfx}", f"Gemma-2: {shape_g}, {kind}, {cap_g}, no window",
+                        256, 8, 4, paged, quantized, None, 50.0, q_scale=BIG_Q, faults=[no_cap])
+            torch.cuda.empty_cache()
+    decode_case("decode_attention_window", f"Mistral: {shape_m}, bf16 cache, no window (every "
+                "live row)", 128, 32, 8, False, False, None, None)
+    decode_case("decode_attention_e256", "Gemma-2B MQA: q (4, 8, 1, 256), KH 1, bf16 cache, "
+                "window 4096", 256, 8, 1, False, False, WINDOW, None)
+    for win in (17, 33):  # planted faults: the windows reach into the staged rows at n_st 20
+        for paged in (False, True):
+            decode_case("paged_decode_attention_window" if paged else "decode_attention_window",
+                        f"window {win}, staged 20, lengths 0/1/65/200", 128, 32, 8, paged, False,
+                        win, None, lens=[0, 1, 65, 200], n_st=20,
+                        faults=[(f"window {win} against plain {win + 1}", dict(window=win + 1))])
+
+    # E at head dim 256: Gemma-2's 26 layers, 4 slots, 4 KV heads
+    NL, B, KH, S, W = 26, 4, 4, 8224, 32
+    lengths = torch.tensor(FAMILY_LENS, dtype=torch.int32, device=dev)
+    k_stage, v_stage = randn(B, NL, KH, W, 256, scale=3.0), randn(B, NL, KH, W, 256, scale=3.0)
+    for quantized in (False, True):
+        shape = (NL, B, KH, S, 256)
+        if quantized:
+            cache_args = [torch.zeros(shape, dtype=torch.int8, device=dev) for _ in range(2)]
+            cache_args += [torch.zeros(shape[:4], device=dev) for _ in range(2)]
+        else:
+            cache_args = [torch.zeros(shape, dtype=bf, device=dev) for _ in range(2)] + [None] * 2
+        got = [t.clone() if t is not None else None for t in cache_args]
+        flush_staging(*got, k_stage, v_stage, lengths)
+        naive.naive_flush_staging(cache_args[0], cache_args[1], k_stage, v_stage, lengths,
+                                  cache_args[2], cache_args[3])
+        pairs = [(g, w_) for g, w_ in zip(got, cache_args) if g is not None]
+        check(all(torch.equal(g, w_) for g, w_ in pairs), "flush_staging at E 256 is not bit-exact")
+        rows = B * NL * KH * W
+        moved = nbytes(k_stage, v_stage) + 2 * rows * 256 * got[0].element_size() + (
+            2 * rows * 4 if quantized else 0)
+        p3.report("flush_staging_e256", f"Gemma-2: (4, 26, 4, 32, 256) -> (26, 4, 4, 8224, 256) "
+                  f"{'int8' if quantized else 'bf16'}", max(max_err(g, w_) for g, w_ in pairs),
+                  0.0, "a copy or the same IEEE quantization: bit-exact",
+                  device_ms(lambda: flush_staging(*got, k_stage, v_stage, lengths)),
+                  device_ms(lambda: naive.naive_flush_staging(
+                      cache_args[0], cache_args[1], k_stage, v_stage, lengths, cache_args[2],
+                      cache_args[3]), n=3),
+                  bound(moved, 0, "f32"), None, not quantized)
+        del cache_args, got, pairs
+        torch.cuda.empty_cache()
 
 
 def phase_products(p3, gen, randn):
@@ -1293,18 +1586,24 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul
 
 class Counter:
     """One launch count of a kernel wrapper under its entry name:
-    `launches`, a mode's own count such as `int8_launches`, or with
-    `minus`, `launches` less that mode's (the other mode's launches)."""
+    `launches`, a mode's own count such as `int8_launches`, with `minus`,
+    `launches` less that mode's (the other mode's launches), or with
+    `mode`, a predicate over the keys of the wrapper's `mode_launches`
+    (head dim and its flags), the launches of the modes it accepts."""
 
-    def __init__(self, name, fn, attr="launches", minus=None):
-        self.name, self.fn, self.attr, self.minus = name, fn, attr, minus
+    def __init__(self, name, fn, attr="launches", minus=None, mode=None):
+        self.name, self.fn, self.attr, self.minus, self.mode = name, fn, attr, minus, mode
 
     def reset(self):
+        if self.mode is not None:
+            self.fn.mode_launches.clear()
         for attr in (self.attr, self.minus):
             if attr is not None:
                 setattr(self.fn, attr, 0)
 
     def read(self):
+        if self.mode is not None:
+            return sum(n for key, n in self.fn.mode_launches.items() if self.mode(*key))
         return getattr(self.fn, self.attr) - (getattr(self.fn, self.minus) if self.minus else 0)
 
 
@@ -1595,6 +1894,98 @@ def phase_moe_grads():
     torch.cuda.empty_cache()
 
 
+def check_pages_free(eng, stats):
+    """Phase 11b: after the drain every page is free again, each once,
+    and no slot holds a page."""
+    free = eng._free_pages
+    check(len(set(free)) == len(free) == eng.n_pages,
+          f"{len(set(free))} distinct free pages of {eng.n_pages} after the drain")
+    check(all(not pages for pages in eng._slot_pages), "a slot still holds pages")
+    print(f"phase 11b pages: all {eng.n_pages} pages of {eng.page_size} tokens free after the "
+          "drain")
+
+
+def _hf_tensors(params, cfg):
+    """A dense params tree as HF names -> tensors: projections stored
+    (out, in), Mistral's and Llama's norm names."""
+    out = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+           "lm_head.weight": params["lm_head"].T.contiguous()}
+    for i, layer in enumerate(params["layers"]):
+        m = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+        for ours, theirs in m.items():
+            t = layer[ours]
+            out[f"model.layers.{i}.{theirs}.weight"] = t.T.contiguous() if ours[0] == "w" else t
+    return out
+
+
+def phase_hf_path(cfg, prompts, dev):
+    """Phase 11d: a dense Mistral-family `cfg` with random weights written
+    as a local HF directory (config.json and two shards of cfg.dtype)
+    inside the checkout, read back through config_from_hf and
+    load_hf_llama onto `dev`; the greedy streams of the loaded weights
+    must be identical to those of the same weights served directly."""
+    import os
+    import shutil
+    import tempfile
+
+    from nnop_tpu_torch.models.llama import init_params
+    from nnop_tpu_torch.models.weights import config_from_hf, load_hf_llama, save_safetensors
+    from nnop_tpu_torch.runtime.engine import Engine
+    from nnop_tpu_torch.utils.build import BUILD_ROOT
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    params = init_params(gen, cfg)
+    os.makedirs(BUILD_ROOT, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="hf_mistral_", dir=BUILD_ROOT)
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(dict(architectures=["MistralForCausalLM"], vocab_size=cfg.vocab_size,
+                           hidden_size=cfg.dim, intermediate_size=cfg.hidden_dim,
+                           num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+                           num_key_value_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                           max_position_embeddings=cfg.max_seq_len, rms_norm_eps=cfg.rms_eps,
+                           rope_theta=cfg.rope_base, sliding_window=cfg.sliding_window,
+                           tie_word_embeddings=False), f)
+        tensors = _hf_tensors(params, cfg)
+        names = sorted(tensors)
+        for i, part in enumerate((names[::2], names[1::2])):
+            save_safetensors(os.path.join(path, f"model-{i + 1:05d}-of-00002.safetensors"),
+                             {n: tensors[n] for n in part})
+        del tensors
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t1 = time.perf_counter()
+        cfg_hf = config_from_hf(path, dtype=cfg.dtype)
+        check(cfg_hf == cfg, f"config_from_hf: {cfg_hf} != {cfg}")
+        loaded = load_hf_llama(path, cfg_hf, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(path)
+    same = all(torch.equal(a, b) for a, b in zip(_hf_tensors(params, cfg).values(),
+                                                 _hf_tensors(loaded, cfg).values()))
+    check(same and loaded.keys() == params.keys(), "load_hf_llama: the tree differs")
+    print(f"phase 11d hf: wrote {size / 2**30:.2f} GiB (config.json + 2 shards of {cfg.dtype}, "
+          f"{cfg.n_layers} layers) in {t1 - t0:.1f} s; config_from_hf gives the config; "
+          f"load_hf_llama onto {dev} in {t2 - t1:.1f} s, every tensor bit-identical")
+    streams = []
+    for tree in (params, loaded):
+        eng = Engine(tree, cfg_hf, max_batch=4, max_seq=8192)
+        reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        eng.run()
+        check(all(r.done and len(r.out) == 32 for r in reqs), "phase 11d: a request did not finish")
+        streams.append([r.out for r in reqs])
+        del eng
+    check(streams[0] == streams[1], "phase 11d: the --hf-path streams differ from the direct ones")
+    print(f"phase 11d hf: greedy streams of the loaded weights identical to the direct ones "
+          f"({len(prompts)} prompts of {[len(p) for p in prompts]} tokens x 32)")
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1630,6 +2021,8 @@ def main():
     qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
     paged_rep, flush_rep = "nnop_tpu/ops/attention_decode_paged.py:430", "nnop_tpu/ops/kv_write.py"
     gmm_src, gmm_rep = "nnop_tpu_torch/csrc/gmm.cu", "nnop_tpu/ops/grouped_matmul.py"
+    flash_src, flash_rep = "nnop_tpu_torch/csrc/flash_fwd.cu", "nnop_tpu/ops/flash_attention.py"
+    decode_rep = "nnop_tpu/ops/attention_decode.py:753"
     # entry name -> (counter, route, source, the TPU kernel it replaces);
     # a bf16 entry of a kernel with an int8 mode counts the bf16 launches
     entries = {
@@ -1692,6 +2085,24 @@ def main():
                                 gmm_src, f"{gmm_rep}:425"),
         "grouped_matmul4": (Counter("grouped_matmul4", _grouped_matmul_q4), "cuda", gmm_src,
                             f"{gmm_rep}:524"),
+        # the families' modes, each counted by its own (head dim, flags) in
+        # the phases that run it: 11a (linear bf16, E 128), 11b (paged
+        # int8, E 128), 11c (linear bf16, E 256); the modes no serving
+        # phase runs read 0
+        "flash_fwd_window": (Counter("flash_fwd_window", flash_fwd, mode=lambda E, win, cap:
+                                     E == 128 and win and not cap), "cuda", flash_src,
+                             f"{flash_rep}:833"),
+        "flash_fwd_e256_softcap": (Counter("flash_fwd_e256_softcap", flash_fwd,
+                                           mode=lambda E, win, cap: E == 256 and cap), "cuda",
+                                   flash_src, f"{flash_rep}:1309"),
+        **{f"{pre}_{kind}{sfx}": (Counter(f"{pre}_{kind}{sfx}", fn, mode=functools.partial(
+            _decode_mode, 128 if kind == "window" else 256, bool(sfx))), "cuda", decode_src, rep)
+           for pre, fn, rep in (("decode_attention", decode_attention, decode_rep),
+                                ("paged_decode_attention", paged_decode_attention, paged_rep))
+           for kind in ("window", "e256") for sfx in ("", "_int8")},
+        "flush_staging_e256": (Counter("flush_staging_e256", flush_staging,
+                                       mode=lambda E, q8: E == 256 and not q8), "cuda", flush_src,
+                               f"{flush_rep}:266"),
     }
     seconds, t_start = {}, [time.perf_counter()]
 
@@ -1709,7 +2120,7 @@ def main():
 
     dev = torch.device("cuda")
     cfg = LlamaConfig.llama3_8b()
-    launches = {}
+    launches = dict.fromkeys(entries, 0)
 
     def record(counts):
         """Each kernel's launches from the first phase that launched it (a
@@ -1718,6 +2129,11 @@ def main():
 
     def counters(*names):
         return [entries[n][0] for n in names]
+
+    def features(*ops, attrs=("window_launches",)):
+        """Counters of C's and D's features (window_launches,
+        softcap_launches), whatever the mode, read around a phase."""
+        return [Counter(f"{op.__name__}.{attr}", op, attr) for op in ops for attr in attrs]
 
     # phases 4-6: 4 (or 2) prompts, one through chunked admission (1100
     # tokens: 3 chunks of 512), on Engine(max_batch=8, max_seq=2048)
@@ -1860,6 +2276,68 @@ def main():
                           if name not in MOE_TRAIN_LAUNCHES_PER_STEP])
     record(counts)
     done("10")
+
+    # 11. the families at full width and full depth, greedy, random bf16
+    #     weights: prompts of 300, 4600 and 6200 tokens (two through chunked
+    #     admission past the window, two decoding past it), 32 new each
+    fam_lens, fam_linear = (300, 4600, 6200), dict(max_batch=4, max_seq=8192)
+    # 11a. Mistral-7B (window 4096 on every layer), linear bf16 cache
+    mcfg = LlamaConfig.mistral_7b()
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(gen, mcfg)
+    m_prompts = [rng.integers(0, mcfg.vocab_size, n).tolist() for n in fam_lens]
+    counts = serve_and_check("phase 11a", params, mcfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd", "flash_fwd_window", "decode_attention",
+        "decode_attention_window", "flush_staging") + features(flash_fwd, decode_attention),
+        fam_linear, m_prompts, [(0, 0), (1, 0), (2, 0)])
+    record(counts)
+    print(f"phase 11a memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    gc.collect()  # the 11a engine and its cache
+    torch.cuda.empty_cache()
+    done("11a")
+    # 11b. the same weights paged, int8 cache: the two long prompts
+    torch.cuda.reset_peak_memory_stats()
+    counts = serve_and_check("phase 11b", params, mcfg, counters(
+        "flash_fwd_window", "paged_decode_attention_int8", "paged_decode_attention_window_int8",
+        "flush_staging_paged_int8") + features(flash_fwd, paged_decode_attention),
+        dict(fam_linear, paged=True, quantized_kv=True),
+        m_prompts[1:], [(0, 0), (1, 0)],
+        idle=counters("decode_attention", "decode_attention_int8", "flush_staging",
+                      "flush_staging_int8"), after=check_pages_free)
+    record(counts)
+    print(f"phase 11b memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("11b")
+    # 11c. Gemma-2-2B (head dim 256, window 4096 on every other layer,
+    #      softcaps 50 and 30, post norms, GeGLU, tied 256000-row embedding)
+    gcfg = LlamaConfig.gemma2_2b()
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(gen, gcfg)
+    g_prompts = [rng.integers(0, gcfg.vocab_size, n).tolist() for n in fam_lens]
+    counts = serve_and_check("phase 11c", params, gcfg, counters(
+        "rms_norm", "llama_rope", "flash_fwd_e256_softcap", "decode_attention_e256",
+        "flush_staging_e256") + features(flash_fwd, decode_attention,
+                                         attrs=("window_launches", "softcap_launches")),
+        fam_linear, g_prompts, [(0, 0), (1, 0), (2, 0)],
+        idle=counters("flash_fwd_window", "decode_attention_window"))
+    record(counts)
+    print(f"phase 11c memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("11c")
+    # 11d. --hf-path: a 2-layer Mistral-7B directory, loaded and served
+    phase_hf_path(LlamaConfig.mistral_7b(n_layers=2, max_seq_len=32768), m_prompts[:2], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("11d")
     print(f"phase seconds: {seconds}; total {sum(seconds.values()):.1f}")
 
     line = {"kernels": [

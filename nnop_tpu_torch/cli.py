@@ -11,9 +11,13 @@ weights, and with `--int8-kv`, an int8 KV cache. Usage:
     python -m nnop_tpu_torch.cli serve --model mixtral --wbits 8 --int8-kv
     python -m nnop_tpu_torch.cli profile --model 8b --wbits 8 --int8-kv --batch 8
 
-Weights are random from `--seed` unless `--checkpoint` names an npz
-written by save_checkpoint (this package's or the JAX package's). A
-checkpoint is quantized after loading, as the JAX package's CLI does;
+Weights are random from `--seed` unless `--hf-path` names a local HF
+checkpoint directory (its .safetensors shards, read by
+models.weights.load_hf_llama straight onto the device; the config still
+comes from `--model`, as in the JAX CLI) or `--checkpoint` names an npz
+written by save_checkpoint (this package's or the JAX package's);
+`--hf-path` wins over `--checkpoint`. Loaded weights are quantized after
+loading, as the JAX package's CLI does;
 random quantized weights are drawn quantized (init_quantized_params: a
 MoE layer's experts int8 whatever --wbits is), so that a model whose
 floating-point weights do not fit one card is served from its int8
@@ -121,7 +125,7 @@ def cmd_train(args):
 def _build_engine(args, **engine_kw):
     from nnop_tpu_torch.models.llama import init_params, init_quantized_params
     from nnop_tpu_torch.models.quantized import quantize_params
-    from nnop_tpu_torch.models.weights import load_checkpoint
+    from nnop_tpu_torch.models.weights import load_checkpoint, load_hf_llama
     from nnop_tpu_torch.runtime.engine import Engine, fuse_decode_weights
     from nnop_tpu_torch.runtime.tokenizer import BPETokenizer, VocabBPETokenizer
 
@@ -129,8 +133,10 @@ def _build_engine(args, **engine_kw):
     device = torch.device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    if args.checkpoint:
-        params = load_checkpoint(args.checkpoint, device)
+    hf_path = getattr(args, "hf_path", None)  # generate and serve have it, as in JAX
+    if hf_path or args.checkpoint:
+        params = (load_hf_llama(hf_path, cfg, device=device) if hf_path
+                  else load_checkpoint(args.checkpoint, device))
         if args.wbits < 16:
             params = quantize_params(params, wbits=args.wbits)
     elif args.wbits < 16:
@@ -239,6 +245,7 @@ def main(argv=None):
     g.add_argument("--prompt", nargs="+", default=["hello world"])
     g.add_argument("--max-new", type=int, default=32)
     g.add_argument("--batch", type=int, default=4)
+    g.add_argument("--hf-path", default=None, help="local HF checkpoint directory")
     g.set_defaults(fn=cmd_generate)
 
     sv = sub.add_parser("serve")
@@ -251,6 +258,7 @@ def main(argv=None):
     sv.add_argument("--top-p", type=float, default=1.0)
     sv.add_argument("--tokenizer", default=None,
                     help="HF tokenizer.json path (default: raw bytes)")
+    sv.add_argument("--hf-path", default=None, help="local HF checkpoint directory")
     sv.set_defaults(fn=cmd_serve)
 
     pr = sub.add_parser("profile")

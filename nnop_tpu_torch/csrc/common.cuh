@@ -69,4 +69,37 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// A block's shared memory as a T: a static variable where T fits the 48
+// KB static limit, else the launch's dynamic shared memory, which must
+// then ask for dynamic_smem_bytes<T> and be opted in to it
+// (opt_in_dynamic_smem). Static where it fits: these kernels ran slower on
+// dynamic shared memory (fewer registers, spills).
+constexpr size_t kStaticSmemLimit = 48 * 1024;
+
+template <typename T>
+constexpr int dynamic_smem_bytes = sizeof(T) <= kStaticSmemLimit ? 0 : static_cast<int>(sizeof(T));
+
+template <typename T>
+__device__ __forceinline__ T& block_smem() {
+  if constexpr (dynamic_smem_bytes<T> == 0) {
+    __shared__ T sm;
+    return sm;
+  } else {
+    extern __shared__ __align__(16) unsigned char nnop_dynamic_smem[];
+    return *reinterpret_cast<T*>(nnop_dynamic_smem);
+  }
+}
+
+// Lets `kernel` launch with T's dynamic shared memory (past 48 KB a launch
+// fails without it); a no-op for a static T. Callers keep the result in a
+// function-local static, so it runs once per kernel.
+template <typename T, typename Kernel>
+cudaError_t opt_in_dynamic_smem(Kernel* kernel) {
+  if constexpr (dynamic_smem_bytes<T> == 0)
+    return cudaSuccess;
+  else
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                dynamic_smem_bytes<T>);
+}
+
 }  // namespace nnop

@@ -5,7 +5,8 @@
 // Replaces nnop_tpu/ops/attention_decode.py:decode_attention (_decode_kernel
 // with _decode_step_b / _decode_step_b_flat / _staging_step_b) and
 // nnop_tpu/ops/attention_decode_paged.py:paged_decode_attention
-// (_paged_kernel) for a floating-point or int8 cache and T = 1.
+// (_paged_kernel) for a floating-point or int8 cache and T = 1, with the
+// sliding window and the score softcap, at head dim 128 or 256.
 //
 // Bound on the H100: device-memory bandwidth. Each step reads every live
 // cache row of the layer once (lengths[b] * E * 2 values per KV head)
@@ -43,6 +44,23 @@
 // pages below ceil(len / page), as the TPU kernel clamps the rest. The
 // TPU kernel steps its online softmax once per page and the linear mode
 // here once per tile; both round P at their own steps.
+//
+// Window (attention_decode.py:187-197, 310-314, 438-441; paged :128-129,
+// 182-183, 244-246): the query sits at position len + staged_n - 1, so a
+// cache row p is live iff p >= len + staged_n - window and a staged row w
+// iff w >= staged_n - window. Each block starts its walk at the tile (in
+// paged mode, inside the page) that holds its own slot's first live row,
+// so a slot reads at most window + 31 cache rows whatever its length (the
+// TPU kernel skips dead blocks from the batch group's minimum). The first
+// tile's dead rows and the dead staged rows are masked. Softcap: s = c * tanh(s / c) on the scaled score (after the K
+// scale of an int8 cache), before any mask.
+//
+// Head dim: one thread per output column, so E threads a block (4 warps
+// at 128, 8 at 256). K and V tiles of 32 keys are staged as f32 in
+// shared memory: static at E = 128 (38 KB), dynamic at E = 256 (74 KB).
+// The E = 128 kernel on dynamic shared memory ran markedly slower (fewer
+// registers, spills); at E = 256, 16-key tiles that fit static shared
+// memory ran slower still (twice the serial tile steps).
 
 #include <type_traits>
 
@@ -50,14 +68,13 @@
 
 namespace {
 
-constexpr int kE = 128;        // head dim: thread i of the block owns output column i
-constexpr int kThreads = kE;   // 4 warps
 constexpr int kTile = 32;      // keys per tile; the staging buffer (W <= 32) is one tile
 constexpr int kMaxG = 8;       // query heads per KV head
-constexpr int kRow = kE + 1;   // padded shared row (floats): row-strided reads hit distinct banks
 
+template <int E>
 struct DecodeSmem {
-  float q[kMaxG][kE];
+  static constexpr int kRow = E + 1;  // padded row (floats): row-strided reads hit distinct banks
+  float q[kMaxG][E];
   float k[kTile][kRow];
   float v[kTile][kRow];
   float p[kMaxG][kTile];  // scores, then the (rounded) probabilities
@@ -65,66 +82,75 @@ struct DecodeSmem {
   float ks[kTile], vs[kTile];  // the tile's per-token scales (int8 cache)
 };
 
-// Copy n (<= kTile) rows of kE values at src into dst as floats. All of a
-// thread's 16-byte loads are issued before any store, so their latencies
-// overlap.
-template <typename KV>
-__device__ __forceinline__ void load_tile(const KV* __restrict__ src, int n, float (*dst)[kRow]) {
-  constexpr int kVec = 16 / sizeof(KV);                 // values per 16-byte vector
-  constexpr int kVecs = kE / kVec;                      // vectors per row
-  constexpr int kPer = kTile * kVecs / kThreads;        // vectors per thread per tile
+// Copy n (<= kTile) rows of E values at src into dst as floats, with E
+// threads. All of a thread's 16-byte loads are issued before any store,
+// so their latencies overlap.
+template <int E, typename KV>
+__device__ __forceinline__ void load_tile(const KV* __restrict__ src, int n,
+                                          float (*dst)[DecodeSmem<E>::kRow]) {
+  constexpr int kVec = 16 / sizeof(KV);            // values per 16-byte vector
+  constexpr int kVecs = E / kVec;                  // vectors per row
+  constexpr int kPer = kTile * kVecs / E;          // vectors per thread per tile
   uint4 raw[kPer];
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
-    const int i = threadIdx.x + u * kThreads, r = i / kVecs, c = (i % kVecs) * kVec;
-    raw[u] = r < n ? *reinterpret_cast<const uint4*>(src + (size_t)r * kE + c)
+    const int i = threadIdx.x + u * E, r = i / kVecs, c = (i % kVecs) * kVec;
+    raw[u] = r < n ? *reinterpret_cast<const uint4*>(src + (size_t)r * E + c)
                    : make_uint4(0, 0, 0, 0);
   }
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
-    const int i = threadIdx.x + u * kThreads, r = i / kVecs, c = (i % kVecs) * kVec;
+    const int i = threadIdx.x + u * E, r = i / kVecs, c = (i % kVecs) * kVec;
     const KV* vals = reinterpret_cast<const KV*>(&raw[u]);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) dst[r][c + e] = nnop::to_float(vals[e]);
   }
 }
 
-// Online-softmax update with the n (<= kTile) live keys at kt / vt (rows
-// of kE). PT is the type P is rounded to for the PV product. ksc / vsc:
-// the keys' scales of an int8 tile (unread for a floating-point one).
-template <typename KV, typename PT>
+// Online-softmax update with the keys [lo, n) (n <= kTile) of the tile at
+// kt / vt (rows of E): rows below lo are window-dead and rows from n on
+// are past the slot's length; both are masked. PT is the type P is
+// rounded to for the PV product. ksc / vsc: the keys' scales of an int8
+// tile (unread for a floating-point one). kSoftcap caps the scores at
+// softcap (inv_cap = 1 / softcap).
+template <int E, bool kSoftcap, typename KV, typename PT>
 __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV* __restrict__ vt,
                                             const float* __restrict__ ksc,
-                                            const float* __restrict__ vsc, int n, int G,
-                                            float scale, DecodeSmem& sm, float* acc) {
+                                            const float* __restrict__ vsc, int lo, int n, int G,
+                                            float scale, float softcap, float inv_cap,
+                                            DecodeSmem<E>& sm, float* acc) {
+  constexpr int kWarps = E / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr bool q8 = std::is_same<KV, int8_t>::value;
-  load_tile(kt, n, sm.k);
-  load_tile(vt, n, sm.v);
+  load_tile<E>(kt, n, sm.k);
+  load_tile<E>(vt, n, sm.v);
   if (q8 && threadIdx.x < n) {
     sm.ks[threadIdx.x] = ksc[threadIdx.x];
     sm.vs[threadIdx.x] = vsc[threadIdx.x];
   }
   __syncthreads();
   // scores: one (query head, key) pair per thread
-  for (int i = threadIdx.x; i < G * kTile; i += kThreads) {
+  for (int i = threadIdx.x; i < G * kTile; i += E) {
     const int gq = i / kTile, j = i % kTile;
     if (j < n) {
       float d = 0.f;
 #pragma unroll 16
-      for (int e = 0; e < kE; ++e) d += sm.q[gq][e] * sm.k[j][e];
-      sm.p[gq][j] = q8 ? d * scale * sm.ks[j] : d * scale;
+      for (int e = 0; e < E; ++e) d += sm.q[gq][e] * sm.k[j][e];
+      d = q8 ? d * scale * sm.ks[j] : d * scale;
+      if constexpr (kSoftcap) d = softcap * tanhf(d * inv_cap);
+      sm.p[gq][j] = d;
     }
   }
   __syncthreads();
-  // softmax state: warp w updates query heads w, w + 4
-  for (int gq = warp; gq < G; gq += kThreads / 32) {
+  // softmax state: warp w updates query heads w, w + kWarps
+  const bool live = lane >= lo && lane < n;
+  for (int gq = warp; gq < G; gq += kWarps) {
     const float m_old = sm.m[gq];
-    const float s = lane < n ? sm.p[gq][lane] : nnop::kMaskValue;
+    const float s = live ? sm.p[gq][lane] : nnop::kMaskValue;
     const float m_new = fmaxf(m_old, nnop::warp_max(s));
-    const float p = lane < n ? __expf(s - m_new) : 0.f;
+    const float p = live ? __expf(s - m_new) : 0.f;
     // int8: the V scale folds into P after the sum, P rounds to bf16
-    sm.p[gq][lane] = q8 ? (lane < n ? nnop::round_to<__nv_bfloat16>(p * sm.vs[lane]) : 0.f)
+    sm.p[gq][lane] = q8 ? (live ? nnop::round_to<__nv_bfloat16>(p * sm.vs[lane]) : 0.f)
                         : nnop::round_to<PT>(p);
     const float sum = nnop::warp_sum(p);
     if (lane == 0) {
@@ -140,7 +166,7 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
 #pragma unroll
   for (int gq = 0; gq < kMaxG; ++gq)
     if (gq < G) acc[gq] *= sm.alpha[gq];
-  for (int j = 0; j < n; ++j) {
+  for (int j = lo; j < n; ++j) {
     const float vv = sm.v[j][e];
 #pragma unroll
     for (int gq = 0; gq < kMaxG; ++gq)
@@ -149,7 +175,7 @@ __device__ __forceinline__ void attend_tile(const KV* __restrict__ kt, const KV*
   __syncthreads();  // the next tile overwrites sm.k, sm.v and sm.p
 }
 
-// The first cache row (in units of kE values) of the tile starting at key
+// The first cache row (in units of E values) of the tile starting at key
 // c0 of slot b. A linear cache has n_blocks = B blocks of S keys per
 // layer, and slot b's rows start at `base` (its block's first row); a
 // pool has n_blocks = n_pages pages of S = page keys, found through the
@@ -163,28 +189,29 @@ __device__ __forceinline__ size_t tile_row(size_t base, int layer, int n_blocks,
     return base + c0;
 }
 
-// Grid (KH, B). Caches (n_layers, n_blocks, KH, S, kE) of KV (T, or int8
-// with scales (n_layers, n_blocks, KH, S) f32): n_blocks = B linear, or
-// n_pages paged with S = page and table (B, max_pages); staging
-// (B, n_layers, KH, W, kE) bf16 or null; q, o (B, QH, kE) of T.
-template <typename T, typename KV, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
+// Grid (KH, B), E threads. Caches (n_layers, n_blocks, KH, S, E) of KV (T,
+// or int8 with scales (n_layers, n_blocks, KH, S) f32): n_blocks = B
+// linear, or n_pages paged with S = page and table (B, max_pages);
+// staging (B, n_layers, KH, W, E) bf16 or null; q, o (B, QH, E) of T.
+// window 0 turns the window off; kSoftcap compiles the softcap in.
+template <int E, typename T, typename KV, bool kPaged, bool kSoftcap>
+__global__ void __launch_bounds__(E)
 decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
               const KV* __restrict__ v_cache, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ k_stage,
               const __nv_bfloat16* __restrict__ v_stage, const int* __restrict__ lengths,
               const int* __restrict__ table, T* __restrict__ o, int B, int QH, int KH, int S,
               int n_blocks, int max_pages, int n_layers, int layer, int W, int staged_n,
-              float scale) {
+              float scale, int window, float softcap, float inv_cap) {
   constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
   using PT = typename std::conditional<kQ8, __nv_bfloat16, KV>::type;
-  __shared__ DecodeSmem sm;
+  DecodeSmem<E>& sm = nnop::block_smem<DecodeSmem<E>>();
   const int kh = blockIdx.x, b = blockIdx.y, G = QH / KH;
   const int len = lengths[b];
-  const T* qb = q + ((size_t)b * QH + (size_t)kh * G) * kE;
-  for (int i = threadIdx.x; i < G * kE; i += kThreads) {
+  const T* qb = q + ((size_t)b * QH + (size_t)kh * G) * E;
+  for (int i = threadIdx.x; i < G * E; i += E) {
     const float v = nnop::to_float(qb[i]);
-    sm.q[i / kE][i % kE] = kQ8 ? nnop::round_to<__nv_bfloat16>(v) : v;
+    sm.q[i / E][i % E] = kQ8 ? nnop::round_to<__nv_bfloat16>(v) : v;
   }
   if (threadIdx.x < kMaxG) {
     sm.m[threadIdx.x] = nnop::kMaskValue;
@@ -195,46 +222,81 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
   for (int gq = 0; gq < kMaxG; ++gq) acc[gq] = 0.f;
   __syncthreads();
 
+  // the first live cache row, and the tile that holds it
+  const int first = window > 0 ? max(0, len + staged_n - window) : 0;
   const size_t base = (((size_t)layer * n_blocks + b) * KH + kh) * (size_t)S;
   const int* slot_table = kPaged ? table + (size_t)b * max_pages : nullptr;
-  for (int c0 = 0; c0 < len; c0 += kTile) {
+  for (int c0 = first < len ? first / kTile * kTile : len; c0 < len; c0 += kTile) {
     const size_t row = tile_row<kPaged>(base, layer, n_blocks, kh, KH, S, slot_table, c0);
-    attend_tile<KV, PT>(k_cache + row * kE, v_cache + row * kE,
-                        kQ8 ? k_scale + row : nullptr, kQ8 ? v_scale + row : nullptr,
-                        min(kTile, len - c0), G, scale, sm, acc);
+    attend_tile<E, kSoftcap, KV, PT>(k_cache + row * E, v_cache + row * E,
+                                     kQ8 ? k_scale + row : nullptr, kQ8 ? v_scale + row : nullptr,
+                                     max(0, first - c0), min(kTile, len - c0), G, scale, softcap,
+                                     inv_cap, sm, acc);
   }
   if (k_stage != nullptr && len > 0 && staged_n > 0) {
     // the staging part runs with q rounded to bf16 (every cache tile is done)
-    for (int i = threadIdx.x; i < G * kE; i += kThreads)
-      sm.q[i / kE][i % kE] = nnop::round_to<__nv_bfloat16>(sm.q[i / kE][i % kE]);
+    for (int i = threadIdx.x; i < G * E; i += E)
+      sm.q[i / E][i % E] = nnop::round_to<__nv_bfloat16>(sm.q[i / E][i % E]);
     __syncthreads();
-    const size_t st_off = (((size_t)b * n_layers + layer) * KH + kh) * (size_t)W * kE;
-    attend_tile<__nv_bfloat16, __nv_bfloat16>(k_stage + st_off, v_stage + st_off, nullptr,
-                                              nullptr, staged_n, G, scale, sm, acc);
+    const size_t st_off = (((size_t)b * n_layers + layer) * KH + kh) * (size_t)W * E;
+    attend_tile<E, kSoftcap, __nv_bfloat16, __nv_bfloat16>(
+        k_stage + st_off, v_stage + st_off, nullptr, nullptr,
+        window > 0 ? max(0, staged_n - window) : 0, staged_n, G, scale, softcap, inv_cap, sm,
+        acc);
   }
-  T* ob = o + ((size_t)b * QH + (size_t)kh * G) * kE;
+  T* ob = o + ((size_t)b * QH + (size_t)kh * G) * E;
 #pragma unroll
   for (int gq = 0; gq < kMaxG; ++gq) {
     if (gq < G) {
       const float l = sm.l[gq];
-      ob[gq * kE + threadIdx.x] = nnop::from_float<T>(acc[gq] / (l == 0.f ? 1.f : l));
+      ob[gq * E + threadIdx.x] = nnop::from_float<T>(acc[gq] / (l == 0.f ? 1.f : l));
     }
   }
 }
 
-template <typename T, typename KV, bool kPaged>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
-                   const void* v_scale, const void* k_stage, const void* v_stage,
-                   const void* lengths, const void* table, void* o, int B, int QH, int KH, int S,
-                   int n_blocks, int max_pages, int n_layers, int layer, int W, int staged_n,
-                   float scale, cudaStream_t st) {
-  decode_kernel<T, KV, kPaged><<<dim3(KH, B), kThreads, 0, st>>>(
+template <int E, typename T, typename KV, bool kPaged, bool kSoftcap>
+cudaError_t launch_one(const void* q, const void* k_cache, const void* v_cache,
+                       const void* k_scale, const void* v_scale, const void* k_stage,
+                       const void* v_stage, const void* lengths, const void* table, void* o,
+                       int B, int QH, int KH, int S, int n_blocks, int max_pages, int n_layers,
+                       int layer, int W, int staged_n, float scale, int window,
+                       cudaStream_t st, float softcap) {
+  constexpr int kDynamic = nnop::dynamic_smem_bytes<DecodeSmem<E>>;
+  static const cudaError_t opt_in =
+      nnop::opt_in_dynamic_smem<DecodeSmem<E>>(decode_kernel<E, T, KV, kPaged, kSoftcap>);
+  if (opt_in != cudaSuccess) return opt_in;
+  decode_kernel<E, T, KV, kPaged, kSoftcap><<<dim3(KH, B), E, kDynamic, st>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_cache), static_cast<const KV*>(v_cache),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(k_stage), static_cast<const __nv_bfloat16*>(v_stage),
       static_cast<const int*>(lengths), static_cast<const int*>(table), static_cast<T*>(o), B,
-      QH, KH, S, n_blocks, max_pages, n_layers, layer, W, staged_n, scale);
+      QH, KH, S, n_blocks, max_pages, n_layers, layer, W, staged_n, scale, window, softcap,
+      kSoftcap ? 1.f / softcap : 0.f);
   return cudaGetLastError();
+}
+
+template <int E, typename T, typename KV, bool kPaged, typename... Args>
+cudaError_t launch(float softcap, Args... args) {
+  return softcap > 0.f ? launch_one<E, T, KV, kPaged, true>(args..., softcap)
+                       : launch_one<E, T, KV, kPaged, false>(args..., softcap);
+}
+
+template <int E, bool kPaged>
+cudaError_t dispatch_types(const void* q, const void* k_cache, const void* v_cache,
+                           const void* k_scale, const void* v_scale, const void* k_stage,
+                           const void* v_stage, const void* lengths, const void* table, void* o,
+                           int B, int QH, int KH, int S, int n_blocks, int max_pages,
+                           int n_layers, int layer, int W, int staged_n, float scale, int window,
+                           float softcap, int q_is_f32, int cache_is_int8, cudaStream_t st) {
+#define NNOP_DECODE_LAUNCH(T, KV)                                                            \
+  launch<E, T, KV, kPaged>(softcap, q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, \
+                           lengths, table, o, B, QH, KH, S, n_blocks, max_pages, n_layers,   \
+                           layer, W, staged_n, scale, window, st)
+  if (cache_is_int8)
+    return q_is_f32 ? NNOP_DECODE_LAUNCH(float, int8_t) : NNOP_DECODE_LAUNCH(__nv_bfloat16, int8_t);
+  return q_is_f32 ? NNOP_DECODE_LAUNCH(float, float)
+                  : NNOP_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#undef NNOP_DECODE_LAUNCH
 }
 
 template <bool kPaged>
@@ -242,24 +304,20 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
              const void* v_scale, const void* k_stage, const void* v_stage, const void* lengths,
              const void* table, void* o, int B, int QH, int KH, int S, int E, int n_blocks,
              int max_pages, int n_layers, int layer, int W, int staged_n, float scale,
-             int q_is_f32, int cache_is_int8, void* stream) {
-  if (E != kE || QH % KH != 0 || QH / KH > kMaxG || W > kTile || staged_n > W ||
-      (cache_is_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+             int window, float softcap, int q_is_f32, int cache_is_int8, void* stream) {
+  if ((E != 128 && E != 256) || QH % KH != 0 || QH / KH > kMaxG || W > kTile ||
+      staged_n > W || window < 0 || (cache_is_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
       (kPaged ? S % kTile != 0 : n_blocks != B))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cache_is_int8) k_scale = v_scale = nullptr;
-#define NNOP_DECODE_LAUNCH(T, KV)                                                            \
-  launch<T, KV, kPaged>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths, table, \
-                        o, B, QH, KH, S, n_blocks, max_pages, n_layers, layer, W, staged_n,      \
-                        scale, st)
-  cudaError_t e;
-  if (cache_is_int8)
-    e = q_is_f32 ? NNOP_DECODE_LAUNCH(float, int8_t) : NNOP_DECODE_LAUNCH(__nv_bfloat16, int8_t);
-  else
-    e = q_is_f32 ? NNOP_DECODE_LAUNCH(float, float)
-                 : NNOP_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-#undef NNOP_DECODE_LAUNCH
+#define NNOP_DECODE_ARGS                                                                    \
+  q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths, table, o, B, QH, KH, S,  \
+      n_blocks, max_pages, n_layers, layer, W, staged_n, scale, window, softcap, q_is_f32,    \
+      cache_is_int8, st
+  const cudaError_t e = E == 128 ? dispatch_types<128, kPaged>(NNOP_DECODE_ARGS)
+                                 : dispatch_types<256, kPaged>(NNOP_DECODE_ARGS);
+#undef NNOP_DECODE_ARGS
   return static_cast<int>(e);
 }
 
@@ -270,20 +328,24 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
 // with scales (n_layers, n_blocks, KH, S) f32; staging (B, n_layers, KH,
 // W, E) bf16 or null; lengths (B,) int32. Linear when page_table is null
 // (n_blocks = B); else pools of n_blocks pages of S keys (S a multiple of
-// 32) and page_table (B, max_pages) int32. E must be 128, QH / KH <= 8
-// and W <= 32.
+// 32) and page_table (B, max_pages) int32. E must be 128 or 256, QH / KH
+// <= 8 and W <= 32. window > 0 keeps the last `window` positions and
+// softcap > 0 caps the scores; 0 turns either off.
 extern "C" int nnop_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* k_scale, const void* v_scale,
                                      const void* k_stage, const void* v_stage,
                                      const void* lengths, const void* page_table, void* o, int B,
                                      int QH, int KH, int S, int E, int n_blocks, int max_pages,
                                      int n_layers, int layer, int W, int staged_n, float scale,
-                                     int q_is_f32, int cache_is_int8, void* stream) {
+                                     int window, float softcap, int q_is_f32, int cache_is_int8,
+                                     void* stream) {
   return page_table != nullptr
              ? dispatch<true>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
                               page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers,
-                              layer, W, staged_n, scale, q_is_f32, cache_is_int8, stream)
+                              layer, W, staged_n, scale, window, softcap, q_is_f32,
+                              cache_is_int8, stream)
              : dispatch<false>(q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
                                nullptr, o, B, QH, KH, S, E, n_blocks, 0, n_layers, layer, W,
-                               staged_n, scale, q_is_f32, cache_is_int8, stream);
+                               staged_n, scale, window, softcap, q_is_f32, cache_is_int8,
+                               stream);
 }

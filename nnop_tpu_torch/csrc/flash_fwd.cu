@@ -2,9 +2,11 @@
 // cores, writing o and the row log-sum-exp (nats).
 //
 // Replaces nnop_tpu/ops/flash_attention.py:_fwd_impl and every kernel it
-// dispatches to on the TPU (_fwd_kernel_rect, _causal_strip_kernel,
-// _rect_static_kernel, ...): one kernel serves bucketed prefill (causal)
-// and chunked prefill (causal from a row offset, with a key-padding mask).
+// dispatches to on the TPU (_fwd_kernel_rect, _causal_strip_kernel via
+// _fwd_causal_window and _fwd_causal_chunked, _rect_static_kernel, ...):
+// one kernel serves bucketed prefill (causal), chunked prefill (causal
+// from a row offset, with a key-padding mask), the sliding window and the
+// score softcap.
 //
 // Bound on the H100: at prefill shapes (512 query rows, head dim 128) the
 // work is ~4 * QL * KL * E flops against ~(QL + 2 * KL) * E * 2 bytes per
@@ -12,37 +14,73 @@
 // throughput. The design keeps the score tile, the online-softmax state
 // and the output accumulator in registers (the S and P tiles never touch
 // memory), reuses each K/V tile from shared memory for 64 query rows, and
-// turns the causal limit into a loop bound so tiles above the diagonal
-// are never loaded. It is the simple form (mma.sync, synchronous tile
-// loads, 64x64 tiles); wgmma, TMA and a pipelined ring are later work.
+// turns the causal limit and the window into loop bounds, so tiles above
+// the diagonal or wholly before the window are never loaded: a windowed
+// row reads about window + 64 keys, whatever the key length. It is the
+// simple form (mma.sync, synchronous tile loads); wgmma, TMA and a
+// pipelined ring are later work.
 //
 // Grid: (cdiv(QL, 64), QH, B); 4 warps, each owning 16 query rows.
 // GQA: the block of query head h reads KV head h / (QH / KH).
-// Masking: key j is visible to query row i when j < KL, kpad[b, j] (if
-// given) and, if causal, j <= i + offset. Masked scores take kMaskValue
-// and their probabilities are exact zeros; a row with no visible key
-// writes zeros (l == 0 is guarded), never NaN.
+// Tiles: 64 keys at head dim 64 and 128, with Q's fragments held in
+// registers and the K/V tiles in static shared memory. At head dim 256
+// the output accumulator alone is 128 f32 registers a thread, so Q stays
+// in shared memory (its fragments are loaded per 16-deep step) and key
+// tiles are 32 rows; the tiles (Q 64 x 264, K and V 32 x 264 bf16: 66
+// KB) are dynamic shared memory. Static shared memory where it fits: the
+// same kernel on dynamic shared memory ran slower at head dim 128. The
+// softcap and the window are template flags, so a call without them runs
+// no per-score test for them (a runtime window test slowed the plain
+// causal path).
+// Scores: s = scale * q.k, then with a softcap c, s = c * tanh(s / c),
+// BEFORE any mask (nnop_tpu/ops/flash_attention.py:119-122).
+// Masking: key j is visible to query row i (at position pos = i + offset)
+// when j < KL, kpad[b, j] (if given) and, if causal, j <= pos and, with a
+// window w, pos - j < w. Masked scores take kMaskValue and their
+// probabilities are exact zeros; a row with no visible key writes zeros
+// (l == 0 is guarded), never NaN.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per shared-memory tile
 constexpr int kThreads = 128;
 
 template <int E>
+struct FwdShape {
+  static constexpr bool kQSmem = E > 128;   // Q in shared memory, not registers
+  static constexpr int kBK = E > 128 ? 32 : 64;  // keys per shared-memory tile
+  static constexpr int kRow = E + 8;        // padded shared-memory row, in elements
+};
+
+// The block's K and V tiles (and at E 256 its Q rows), padded rows.
+template <int E>
+struct alignas(16) FwdTiles {
+  using S = FwdShape<E>;
+  __nv_bfloat16 buf[((S::kQSmem ? kBQ : 0) + 2 * S::kBK) * S::kRow];
+};
+
+// kSoftcap / kWindow: compiled in only where asked for; inv_cap = 1 /
+// softcap comes from the host.
+template <int E, bool kSoftcap, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kpad,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int QH, int KH,
-                 int QL, int KL, float scale, int causal, int offset) {
+                 int QL, int KL, float scale, int causal, int offset, int window,
+                 float softcap, float inv_cap) {
+  using Shape = FwdShape<E>;
+  constexpr int kBK = Shape::kBK;
+  constexpr int kRow = Shape::kRow;
+  constexpr bool kQSmem = Shape::kQSmem;
   constexpr int kSteps = E / 16;    // 16-deep slices of the head dim (QK^T)
   constexpr int kOTiles = E / 8;    // 8-wide output column tiles
   constexpr int kSTiles = kBK / 8;  // 8-wide score column tiles
-  constexpr int kRow = E + 8;       // padded shared-memory row, in elements
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBK * kRow];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBK * kRow];
+  constexpr int kVecs = E / 8;      // 16-byte vectors per row
+  __nv_bfloat16* k_s = nnop::block_smem<FwdTiles<E>>().buf;
+  __nv_bfloat16* v_s = k_s + kBK * kRow;
+  __nv_bfloat16* q_s = v_s + kBK * kRow;  // used only when kQSmem
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (QH / KH);
@@ -56,28 +94,42 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* vb = v + (size_t)(b * KH + kh) * KL * E;
   const uint8_t* kp = kpad ? kpad + (size_t)b * KL : nullptr;
 
-  // Q fragments stay in registers for the whole loop (rows past QL are 0).
+  // Q fragments: in registers for the whole loop (E <= 128), or the block's
+  // 64 Q rows in shared memory (E = 256). Rows past QL are 0.
   auto ld_q = [&](int r, int c) -> uint32_t {
     return r < QL ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * E + c) : 0u;
   };
-  uint32_t qf[kSteps][4];
+  uint32_t qf[kQSmem ? 1 : kSteps][4];
+  if constexpr (kQSmem) {
+    for (int i = threadIdx.x; i < kBQ * kVecs; i += kThreads) {
+      const int r = i / kVecs, cv = (i % kVecs) * 8, row = iq * kBQ + r;
+      *reinterpret_cast<uint4*>(q_s + r * kRow + cv) =
+          row < QL ? *reinterpret_cast<const uint4*>(qb + (size_t)row * E + cv)
+                   : make_uint4(0, 0, 0, 0);
+    }
+  } else {
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int c = s * 16 + 2 * t;
-    qf[s][0] = ld_q(r_lo, c);
-    qf[s][1] = ld_q(r_hi, c);
-    qf[s][2] = ld_q(r_lo, c + 8);
-    qf[s][3] = ld_q(r_hi, c + 8);
+    for (int s = 0; s < kSteps; ++s) {
+      const int c = s * 16 + 2 * t;
+      qf[s][0] = ld_q(r_lo, c);
+      qf[s][1] = ld_q(r_hi, c);
+      qf[s][2] = ld_q(r_lo, c + 8);
+      qf[s][3] = ld_q(r_hi, c + 8);
+    }
   }
 
   auto visible = [&](int row, int col) -> bool {
-    return col < KL && (kp == nullptr || kp[col] != 0) && (!causal || col <= row + offset);
+    const int pos = row + offset;
+    return col < KL && (kp == nullptr || kp[col] != 0) &&
+           (!causal || (col <= pos && (!kWindow || pos - col < window)));
   };
 
-  int n_tiles = (KL + kBK - 1) / kBK;
+  int n_tiles = (KL + kBK - 1) / kBK, j_first = 0;
   if (causal) {  // tiles entirely above the block's last row are never loaded
     const int last_pos = min(iq * kBQ + kBQ - 1, QL - 1) + offset;
     n_tiles = min(n_tiles, last_pos / kBK + 1);
+    if constexpr (kWindow)  // nor tiles entirely before its first row's window
+      j_first = max(0, iq * kBQ + offset + 1 - window) / kBK;
   }
 
   float acc[kOTiles][4];
@@ -85,10 +137,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int n = 0; n < kOTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_lo = nnop::kMaskValue, m_hi = nnop::kMaskValue, l_lo = 0.f, l_hi = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j_first; j < n_tiles; ++j) {
     const int c0 = j * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int kVecs = E / 8;  // 16-byte vectors per row
+    __syncthreads();  // every warp is done with the previous tile (and Q has landed)
     for (int i = threadIdx.x; i < kBK * kVecs; i += kThreads) {
       const int r = i / kVecs, cv = (i % kVecs) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;  // rows past KL are zeros
@@ -101,29 +152,44 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
+    // S = Q K^T for this warp's 16 rows x kBK keys
     float s[kSTiles][4];
 #pragma unroll
     for (int n = 0; n < kSTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int st = 0; st < kSteps; ++st) {
+      const uint32_t* qa;
+      uint32_t qs[4];
+      if constexpr (kQSmem) {
+        const __nv_bfloat16* qr = q_s + (warp * 16 + g) * kRow + st * 16 + 2 * t;
+        qs[0] = *reinterpret_cast<const uint32_t*>(qr);
+        qs[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * kRow);
+        qs[2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+        qs[3] = *reinterpret_cast<const uint32_t*>(qr + 8 * kRow + 8);
+        qa = qs;
+      } else {
+        qa = qf[st];
+      }
 #pragma unroll
       for (int n = 0; n < kSTiles; ++n) {
         const __nv_bfloat16* kr = k_s + (n * 8 + g) * kRow + st * 16 + 2 * t;
         const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kr),
                                 *reinterpret_cast<const uint32_t*>(kr + 8)};
-        nnop::mma_bf16_16816(s[n], qf[st], bf);
+        nnop::mma_bf16_16816(s[n], qa, bf);
       }
     }
 
-    // online softmax: mask, row max over the quad of lanes sharing a row
+    // scale, softcap, mask; online softmax: row max over the quad of lanes
+    // sharing a row
     float mx_lo = nnop::kMaskValue, mx_hi = nnop::kMaskValue;
 #pragma unroll
     for (int n = 0; n < kSTiles; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = c0 + n * 8 + 2 * t + (e & 1);
-        const float val = visible(e < 2 ? r_lo : r_hi, col) ? s[n][e] * scale : nnop::kMaskValue;
+        float val = s[n][e] * scale;
+        if constexpr (kSoftcap) val = softcap * tanhf(val * inv_cap);
+        val = visible(e < 2 ? r_lo : r_hi, col) ? val : nnop::kMaskValue;
         s[n][e] = val;
         if (e < 2) mx_lo = fmaxf(mx_lo, val); else mx_hi = fmaxf(mx_hi, val);
       }
@@ -204,34 +270,57 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+template <int E, bool kSoftcap, bool kWindow>
+cudaError_t launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+                       const __nv_bfloat16* k, const __nv_bfloat16* v, const uint8_t* kpad,
+                       __nv_bfloat16* o, float* lse, int QH, int KH, int QL, int KL,
+                       float scale, int causal, int offset, int window, float softcap) {
+  constexpr int kDynamic = nnop::dynamic_smem_bytes<FwdTiles<E>>;
+  static const cudaError_t opt_in =
+      nnop::opt_in_dynamic_smem<FwdTiles<E>>(flash_fwd_kernel<E, kSoftcap, kWindow>);
+  if (opt_in != cudaSuccess) return opt_in;
+  flash_fwd_kernel<E, kSoftcap, kWindow><<<grid, kThreads, kDynamic, st>>>(
+      q, k, v, kpad, o, lse, QH, KH, QL, KL, scale, causal, offset, window, softcap,
+      kSoftcap ? 1.f / softcap : 0.f);
+  return cudaGetLastError();
+}
+
+// The instantiation for the features asked for (softcap > 0, window > 0).
+template <int E, typename... Args>
+cudaError_t launch(float softcap, int window, Args... args) {
+  if (softcap > 0.f)
+    return window > 0 ? launch_one<E, true, true>(args..., window, softcap)
+                      : launch_one<E, true, false>(args..., window, softcap);
+  return window > 0 ? launch_one<E, false, true>(args..., window, softcap)
+                    : launch_one<E, false, false>(args..., window, softcap);
+}
+
 }  // namespace
 
 // q (B, QH, QL, E), k/v (B, KH, KL, E), o (B, QH, QL, E): bf16, contiguous.
-// kpad (B, KL) uint8 or null; lse (B, QH, QL) f32. E is 64 or 128.
+// kpad (B, KL) uint8 or null; lse (B, QH, QL) f32. E is 64, 128 or 256.
+// window > 0 (with causal) keeps the last `window` positions; softcap > 0
+// caps the scores; 0 turns either off.
 extern "C" int nnop_flash_fwd(const void* q, const void* k, const void* v, const void* kpad,
                               void* o, void* lse, int B, int QH, int KH, int QL, int KL, int E,
-                              float scale, int causal, int offset, void* stream) {
+                              float scale, int causal, int offset, int window, float softcap,
+                              void* stream) {
   const dim3 grid((QL + kBQ - 1) / kBQ, QH, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* pp = static_cast<const uint8_t*>(kpad);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp = static_cast<float*>(lse);
+#define NNOP_FWD_ARGS                                                                      \
+  grid, st, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),    \
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kpad),             \
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), QH, KH, QL, KL, scale,      \
+      causal, offset
+  cudaError_t e;
   switch (E) {
-    case 64:
-      flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, pp, op, lp, QH, KH, QL, KL,
-                                                      scale, causal, offset);
-      break;
-    case 128:
-      flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, pp, op, lp, QH, KH, QL, KL,
-                                                       scale, causal, offset);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 64: e = launch<64>(softcap, window, NNOP_FWD_ARGS); break;
+    case 128: e = launch<128>(softcap, window, NNOP_FWD_ARGS); break;
+    case 256: e = launch<256>(softcap, window, NNOP_FWD_ARGS); break;
+    default: e = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+#undef NNOP_FWD_ARGS
+  return static_cast<int>(e);
 }
 
 extern "C" const char* nnop_error_string(int err) {

@@ -2,13 +2,16 @@
 
 `decode_attention` wraps csrc/decode_attn.cu, which replaces
 nnop_tpu/ops/attention_decode.py:decode_attention (`_decode_kernel`) for
-a floating-point or int8 cache and one query token per sequence. See the
-kernel source for what bounds it and how. The int8 mode has its own
-launch count, `decode_attention.int8_launches`, beside `launches`. The
+a floating-point or int8 cache and one query token per sequence, with the
+sliding window and the score softcap, at head dim 128 or 256. See the
+kernel source for what bounds it and how. The int8 mode, the window and
+the softcap have their own launch counts (`decode_attention.int8_launches`,
+`.window_launches`, `.softcap_launches`) beside `launches`, and
+`.mode_launches` counts them by (head dim, int8, window, softcap). The
 same kernel body serves a paged pool (ops/attention_decode_paged.py).
 
-Multi-token speculative verify (T > 1) and, on CUDA, the sliding window
-and softcap are not ported yet and raise NotImplementedError.
+Multi-token speculative verify (T > 1) is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,10 +63,20 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     o = launch_decode("decode_attention", q, k_cache, v_cache, lengths, k_scale, v_scale, None,
                       scale=scale, k_stage=k_stage, v_stage=v_stage, staged_n=staged_n,
                       layer=layer, window=window, softcap=softcap)
-    decode_attention.launches += 1
-    if quantized:
-        decode_attention.int8_launches += 1
+    count_launch(decode_attention, q.shape[-1], quantized, window, softcap)
     return o
+
+
+def count_launch(op, E, quantized, window, softcap):
+    """Add one launch of kernel D to `op`'s counts: all launches; those of
+    the int8 mode, with a window and with a softcap; and those of its mode
+    (E, int8, window, softcap) in `op.mode_launches`."""
+    op.launches += 1
+    op.int8_launches += quantized
+    op.window_launches += window is not None
+    op.softcap_launches += softcap is not None
+    mode = (E, quantized, window is not None, softcap is not None)
+    op.mode_launches[mode] = op.mode_launches.get(mode, 0) + 1
 
 
 def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_table, *, scale,
@@ -74,9 +87,10 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
     calling op's, for its errors. Returns o (B, QH, 1, E)."""
     quantized = k_scale is not None
     B, QH, _, E = q.shape
-    for opt, val in (("window", window), ("softcap", softcap)):
-        if val is not None:
-            raise NotImplementedError(f"{name}: {opt} is not ported to the CUDA kernel yet")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
     if layer is None:  # view a plain cache as a one-layer stack
         k_cache, v_cache, layer = k_cache[None], v_cache[None], 0
         if quantized:
@@ -91,9 +105,9 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
                          f"{tuple(q.shape)}")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range for {n_layers} layers")
-    if E != 128 or QH % KH or QH // KH > MAX_GROUP or (paged and S % TILE):
-        raise ValueError(f"kernel needs head dim 128, QH/KH <= {MAX_GROUP} and pages of whole "
-                         f"{TILE}-key tiles; got E={E}, QH={QH}, KH={KH}, page={S}")
+    if E not in (128, 256) or QH % KH or QH // KH > MAX_GROUP or (paged and S % TILE):
+        raise ValueError(f"kernel needs head dim 128 or 256, QH/KH <= {MAX_GROUP} and pages of "
+                         f"whole {TILE}-key tiles; got E={E}, QH={QH}, KH={KH}, page={S}")
     check_cuda_operand("q", q, (torch.bfloat16, torch.float32))
     cache_dtype = torch.int8 if quantized else q.dtype
     check_cuda_operand("k_cache", k_cache, (cache_dtype,), device=q.device)
@@ -128,7 +142,8 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
         v_stage.data_ptr() if v_stage is not None else None,
         lengths.data_ptr(), page_table.data_ptr() if paged else None, o.data_ptr(), B, QH, KH,
         S, E, n_blocks, page_table.shape[1] if paged else 0, n_layers, int(layer), W, staged_n,
-        float(scale), int(q.dtype == torch.float32), int(quantized),
+        float(scale), int(window or 0), float(softcap or 0.0), int(q.dtype == torch.float32),
+        int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(name, err)
@@ -137,3 +152,6 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
 
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
+decode_attention.window_launches = 0
+decode_attention.softcap_launches = 0
+decode_attention.mode_launches = {}

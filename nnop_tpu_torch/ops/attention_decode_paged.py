@@ -4,19 +4,20 @@
 replaces nnop_tpu/ops/attention_decode_paged.py:paged_decode_attention
 (`_paged_kernel`) for a floating-point or int8 pool and one query token
 per sequence. It is the decode kernel of ops/attention_decode.py with
-each 32-key tile's rows found through the slot's page table; see the
-kernel source for what bounds it. The int8 mode has its own launch
-count, `paged_decode_attention.int8_launches`, beside `launches`.
-
-On CUDA, the sliding window and softcap are not ported yet and raise
-NotImplementedError (the plain version has them).
+each 32-key tile's rows found through the slot's page table, with the
+sliding window (a slot's walk starts inside the page that holds its
+first live row) and the score softcap; see the kernel source for what
+bounds it. The int8 mode, the window and the softcap have their own
+launch counts (`paged_decode_attention.int8_launches`, `.window_launches`,
+`.softcap_launches`) beside `launches`, and `.mode_launches` counts them
+by (head dim, int8, window, softcap).
 """
 
 from __future__ import annotations
 
 import torch
 
-from nnop_tpu_torch.ops.attention_decode import launch_decode
+from nnop_tpu_torch.ops.attention_decode import count_launch, launch_decode
 from nnop_tpu_torch.ops.naive import naive_paged_decode_attention
 
 
@@ -55,11 +56,12 @@ def paged_decode_attention(q, pool_k, pool_v, page_table, lengths, pool_k_scale=
     o = launch_decode("paged_decode_attention", q, pool_k, pool_v, lengths, pool_k_scale,
                       pool_v_scale, page_table, scale=scale, k_stage=k_stage, v_stage=v_stage,
                       staged_n=staged_n, layer=layer, window=window, softcap=softcap)
-    paged_decode_attention.launches += 1
-    if quantized:
-        paged_decode_attention.int8_launches += 1
+    count_launch(paged_decode_attention, q.shape[-1], quantized, window, softcap)
     return o
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+paged_decode_attention.window_launches = 0
+paged_decode_attention.softcap_launches = 0
+paged_decode_attention.mode_launches = {}

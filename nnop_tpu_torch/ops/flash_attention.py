@@ -4,14 +4,17 @@
 nnop_tpu/ops/flash_attention.py:_fwd_impl and the TPU dispatch zoo under
 it (the rect, causal-strip, rect-static, window and chunked kernels): one
 FA-2 kernel serves causal bucketed prefill and chunked prefill (causal
-from a row offset with a key-padding mask). See the kernel source for
-what bounds it and how.
+from a row offset with a key-padding mask), with the sliding window and
+the score softcap. See the kernel source for what bounds it and how. The
+launches with a window and with a softcap are counted apart
+(`flash_fwd.window_launches`, `.softcap_launches`) beside `launches`, and
+`flash_fwd.mode_launches` counts them by (head dim, window, softcap).
 
 Layouts are the JAX package's: q (B, QH, QL, E), k/v (B, KH, KL, E),
 kpad_mask (B, KL) with True = valid. GQA: query head h reads KV head
-h // (QH // KH). The kernel takes bf16 and head dim 64 or 128; pair bias,
-segment ids, the sliding window and softcap are served only by the plain
-version (a CPU tensor) and raise NotImplementedError on CUDA.
+h // (QH // KH). The kernel takes bf16 and head dim 64, 128 or 256; pair
+bias and segment ids are served only by the plain version (a CPU tensor)
+and raise NotImplementedError on CUDA.
 
 `flash_attention` is differentiable through a `torch.autograd.Function`
 (the JAX custom VJP, nnop_tpu/ops/flash_attention.py:1350-1379): its
@@ -29,7 +32,6 @@ import torch
 from nnop_tpu_torch.ops.naive import naive_attention
 from nnop_tpu_torch.utils.build import check_launch, load_library
 from nnop_tpu_torch.utils.platform import check_cuda_operand
-
 
 def _validate(q, k, v, pair, kpad_mask):
     """Shape-contract errors (nnop_tpu/ops/flash_attention.py:_validate)."""
@@ -64,16 +66,19 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
             kpad_mask=kpad_mask, segment_ids=segment_ids, scale=scale,
             window=window, softcap=softcap, return_lse=True,
         )
-    for name, val in (("pair", pair), ("segment_ids", segment_ids),
-                      ("window", window), ("softcap", softcap)):
+    for name, val in (("pair", pair), ("segment_ids", segment_ids)):
         if val is not None:
             raise NotImplementedError(f"flash_fwd: {name} is not ported to the CUDA kernel yet")
     B, QH, QL, E = q.shape
     KH, KL = k.shape[1], k.shape[2]
-    if E not in (64, 128):
-        raise ValueError(f"head dim {E} not supported by the kernel (64 or 128)")
+    if E not in (64, 128, 256):
+        raise ValueError(f"head dim {E} not supported by the kernel (64, 128 or 256)")
     if causal_offset < 0:
         raise ValueError(f"causal_offset must be >= 0, got {causal_offset}")
+    if window is not None and (not causal or window < 1):
+        raise ValueError(f"window {window} needs causal=True and window >= 1")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
     check_cuda_operand("q", q, (torch.bfloat16,))
     check_cuda_operand("k", k, (torch.bfloat16,), device=q.device)
     check_cuda_operand("v", v, (torch.bfloat16,), device=q.device)
@@ -87,15 +92,22 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kpad_mask.data_ptr() if kpad_mask is not None else None,
         o.data_ptr(), lse.data_ptr(), B, QH, KH, QL, KL, E, float(scale),
-        int(causal), int(causal_offset),
+        int(causal), int(causal_offset), int(window or 0), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("flash_fwd", err)
     flash_fwd.launches += 1
+    flash_fwd.window_launches += window is not None
+    flash_fwd.softcap_launches += softcap is not None
+    mode = (E, window is not None, softcap is not None)
+    flash_fwd.mode_launches[mode] = flash_fwd.mode_launches.get(mode, 0) + 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.window_launches = 0
+flash_fwd.softcap_launches = 0
+flash_fwd.mode_launches = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -10,7 +10,8 @@ flushed, one scale per token. Caches, pools and scales are updated in
 place (the TPU versions aliased them through the pallas call and
 scattered the scales after it). See the kernel source for what bounds it
 and how. The flushes' int8 modes have their own launch counts,
-`int8_launches`, beside `launches`.
+`int8_launches`, beside `launches`; `flush_staging.mode_launches` counts
+its launches by (head dim, int8).
 """
 
 from __future__ import annotations
@@ -44,11 +45,14 @@ def flush_staging(k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, base_len
         flush_staging.launches += 1
         if k_scale is not None:
             flush_staging.int8_launches += 1
+        mode = (k_stage.shape[-1], k_scale is not None)
+        flush_staging.mode_launches[mode] = flush_staging.mode_launches.get(mode, 0) + 1
     return k_cache, v_cache, k_scale, v_scale
 
 
 flush_staging.launches = 0
 flush_staging.int8_launches = 0
+flush_staging.mode_launches = {}
 
 
 @torch.no_grad()

@@ -35,8 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
-    # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset, stream
-    "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset,
+    # window, softcap, stream
+    "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _F, _P],
     # q, k, v, o, dout, lse, kpad, dq, delta, B, QH, KH, QL, KL, E, scale,
     # causal, stream
     "nnop_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
@@ -45,8 +46,8 @@ SIGNATURES = {
     "nnop_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
     # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
     # page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers, layer,
-    # W, staged_n, scale, q_is_f32, cache_is_int8, stream
-    "nnop_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _I, _P],
+    # W, staged_n, scale, window, softcap, q_is_f32, cache_is_int8, stream
+    "nnop_decode_attention": [_P] * 10 + [_I] * 11 + [_F, _I, _F, _I, _I, _P],
     # k_stage, v_stage, k_cache, v_cache, k_scale, v_scale, lengths,
     # page_table, B, n_blocks, max_pages, n_layers, KH, S, W, E, cache_kind,
     # stream

@@ -118,6 +118,142 @@ def test_flush_kernel(gen, dtype):
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
 
 
+# the sliding window, the softcap and head dim 256 (Mistral, Gemma, Gemma-2)
+FLASH_FEATURE_CASES = {
+    # name: (E, QH, KH, QL, KL, offset, n_valid, window, softcap)
+    "window17": (128, 32, 8, 300, 300, 0, None, 17, None),
+    "window33_chunked": (128, 32, 8, 128, 512, 200, 328, 33, None),
+    "window_past_tiles": (128, 8, 8, 64, 1024, 900, 964, 64, None),
+    "E64_window5": (64, 4, 2, 70, 70, 0, None, 5, None),
+    "E256_causal": (256, 8, 4, 300, 300, 0, None, None, None),
+    "E256_softcap50": (256, 8, 4, 200, 200, 0, None, None, 50.0),
+    "E256_window33_softcap": (256, 8, 4, 128, 512, 200, 328, 33, 50.0),
+    "E256_mqa_chunked": (256, 8, 1, 100, 384, 250, 350, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_FEATURE_CASES))
+def test_flash_kernel_window_softcap(gen, case):
+    E, QH, KH, QL, KL, offset, n_valid, window, softcap = FLASH_FEATURE_CASES[case]
+    q, k, v = _bf(gen, 1, QH, QL, E), _bf(gen, 1, KH, KL, E), _bf(gen, 1, KH, KL, E)
+    kw = dict(causal=True, scale=E ** -0.5, causal_offset=offset, window=window,
+              softcap=softcap)
+    if n_valid is not None:
+        kw["kpad_mask"] = (torch.arange(KL, device="cuda") < n_valid)[None]
+    before = flash_fwd.window_launches, flash_fwd.softcap_launches
+    got = flash_fwd(q, k, v, **kw)
+    assert (flash_fwd.window_launches, flash_fwd.softcap_launches) == (
+        before[0] + (window is not None), before[1] + (softcap is not None))
+    for g, w in zip(got, naive.naive_attention(q, k, v, return_lse=True, **kw)):
+        torch.testing.assert_close(g, w, **TOL)
+    if window is not None:  # an off-by-one in the window must not pass
+        wrong = naive.naive_attention(q, k, v, **dict(kw, window=window + 1))
+        assert (got[0].float() - wrong.float()).abs().max().item() > TOL["atol"]
+
+
+# The softcap where it binds: q scaled so that the scores reach several
+# times the cap (with scores of std 1, a cap of 50 moves the output by
+# ~1e-5, and a kernel without the tanh would pass)
+SOFTCAP_BINDS = {"E128_cap5": (128, 32, 8, 5.0, 4.0), "E256_cap50": (256, 8, 4, 50.0, 40.0)}
+
+
+@pytest.mark.parametrize("window", [None, 33], ids=["no_window", "window33"])
+@pytest.mark.parametrize("case", list(SOFTCAP_BINDS))
+def test_flash_kernel_softcap_binds(gen, case, window):
+    E, QH, KH, softcap, q_scale = SOFTCAP_BINDS[case]
+    q = _bf(gen, 1, QH, 128, E, scale=q_scale)
+    k, v = _bf(gen, 1, KH, 512, E), _bf(gen, 1, KH, 512, E)
+    kw = dict(causal=True, scale=E ** -0.5, causal_offset=200, window=window, softcap=softcap,
+              kpad_mask=(torch.arange(512, device="cuda") < 328)[None])
+    mode = (E, window is not None, True)
+    before = flash_fwd.mode_launches.get(mode, 0)
+    got = flash_fwd(q, k, v, **kw)
+    assert flash_fwd.mode_launches[mode] == before + 1
+    for g, w in zip(got, naive.naive_attention(q, k, v, return_lse=True, **kw)):
+        torch.testing.assert_close(g, w, **TOL)
+    uncapped = naive.naive_attention(q, k, v, **dict(kw, softcap=None))
+    assert (got[0].float() - uncapped.float()).abs().max().item() > TOL["atol"]
+
+
+def _decode_features_inputs(gen, mode, E, KH, QH, quantized):
+    """Stacked caches or pools (2 layers) and staging at head dim E, with
+    lengths [0, 1, 65, 200] (and a shuffled table for the paged mode)."""
+    page = 64
+    if mode == "paged":
+        shape = (2, 16, KH, page, E)
+        perm = torch.randperm(16, generator=gen, device="cuda").to(torch.int32)
+        table = torch.full((4, 4), 10_000, dtype=torch.int32, device="cuda")
+        table[1, :1], table[2, :2], table[3, :4] = perm[:1], perm[1:3], perm[3:7]
+    else:
+        shape, table = (2, 4, KH, 256, E), None
+    if quantized:
+        kq, vq = _q8_cache(gen, *shape), _q8_cache(gen, *shape)
+        caches, scales = (kq.values, vq.values), (kq.scale, vq.scale)
+    else:
+        caches, scales = (_bf(gen, *shape), _bf(gen, *shape)), ()
+    lengths = torch.tensor([0, 1, 65, 200], dtype=torch.int32, device="cuda")
+    stage = (_bf(gen, 4, 2, KH, 32, E), _bf(gen, 4, 2, KH, 32, E))
+    return _bf(gen, 4, QH, 1, E), caches, scales, lengths, table, stage
+
+
+@pytest.mark.parametrize("window,softcap", [(40, None), (5, None), (None, 50.0), (17, 50.0)],
+                         ids=["window40", "window5_in_staging", "softcap50", "window17_softcap"])
+@pytest.mark.parametrize("E,QH,KH", [(128, 32, 8), (256, 8, 4), (256, 8, 1)],
+                         ids=["E128", "E256", "E256_mqa"])
+@pytest.mark.parametrize("mode", ["linear", "paged"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_window_softcap(gen, quantized, mode, E, QH, KH, window, softcap):
+    q, caches, scales, lengths, table, (ks, vs) = _decode_features_inputs(
+        gen, mode, E, KH, QH, quantized)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=7, layer=1, window=window, softcap=softcap)
+    if mode == "paged":
+        op, plain, args = (paged_decode_attention, naive.naive_paged_decode_attention,
+                           (q, *caches, table, lengths, *scales))
+    else:
+        op, plain, args = (decode_attention, naive.naive_decode_attention,
+                           (q, *caches, lengths, *scales))
+    before = op.window_launches, op.softcap_launches
+    got = op(*args, **kw)
+    assert (op.window_launches, op.softcap_launches) == (
+        before[0] + (window is not None), before[1] + (softcap is not None))
+    assert (got[0] == 0).all()  # the empty slot
+    torch.testing.assert_close(got, plain(*args, **kw), **TOL)
+    if window is not None:  # an off-by-one in the window must not pass
+        wrong = plain(*args, **dict(kw, window=window + 1))
+        assert (got.float() - wrong.float()).abs().max().item() > TOL["atol"]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_flush_kernel_e256(gen, quantized):
+    """Kernel E at Gemma-2's head dim: bit-exact against the plain flush."""
+    shape = (2, 4, 4, 256, 256)
+    if quantized:
+        kq, vq = _q8_cache(gen, *shape), _q8_cache(gen, *shape)
+        caches = [kq.values, vq.values, kq.scale, vq.scale]
+    else:
+        caches = [_bf(gen, *shape), _bf(gen, *shape), None, None]
+    ks, vs = _bf(gen, 4, 2, 4, 32, 256, scale=3.0), _bf(gen, 4, 2, 4, 32, 256, scale=3.0)
+    lengths = torch.tensor([0, 1, 65, 224], dtype=torch.int32, device="cuda")
+    got = [t.clone() if t is not None else None for t in caches]
+    flush_staging(*got, ks, vs, lengths)
+    naive.naive_flush_staging(caches[0], caches[1], ks, vs, lengths, caches[2], caches[3])
+    torch.cuda.synchronize()
+    for g, w in zip(got, caches):
+        if g is not None:
+            assert torch.equal(g, w)
+
+
+def test_rms_norm_rope_gemma2_shapes(gen):
+    """A at Gemma-2's width (2304, offset 1) and B at its head dim 256."""
+    x, w = _bf(gen, 64, 2304), _bf(gen, 2304, scale=0.1)
+    torch.testing.assert_close(rms_norm(x, w, 1e-6, offset=1.0),
+                               naive.naive_rms_norm(x, w, eps=1e-6, offset=1.0), **TOL)
+    q, k = _bf(gen, 2, 8, 9, 256, scale=0.5), _bf(gen, 2, 4, 9, 256, scale=0.5)
+    cos, sin = RotaryEmbedding(256, 10000.0)(torch.arange(18, device="cuda").view(2, 9) * 300)
+    for got, want in zip(llama_rope(q, k, cos, sin), naive.naive_rope(q, k, cos, sin)):
+        torch.testing.assert_close(got, want, **TOL)
+
+
 def _q8_cache(gen, *shape):
     """int8 cache values and per-token scales, as the flush makes them."""
     return quantize(_bf(gen, *shape).float(), axis=-1)
@@ -428,3 +564,29 @@ def test_flash_bwd_kernels(gen, case):
     assert torch.equal(out, o)
     assert all(torch.equal(a, b) for a, b in
                zip(torch.autograd.grad(out, leaves, do), got))
+
+
+@pytest.mark.parametrize("window", [None, 40], ids=["no_window", "window40"])
+@pytest.mark.parametrize("case", list(SOFTCAP_BINDS))
+@pytest.mark.parametrize("mode", ["linear", "paged"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_softcap_binds(gen, quantized, mode, case, window):
+    E, QH, KH, softcap, q_scale = SOFTCAP_BINDS[case]
+    q, caches, scales, lengths, table, (ks, vs) = _decode_features_inputs(
+        gen, mode, E, KH, QH, quantized)
+    q = (q.float() * q_scale).to(torch.bfloat16)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=7, layer=1, window=window, softcap=softcap)
+    if mode == "paged":
+        op, plain, args = (paged_decode_attention, naive.naive_paged_decode_attention,
+                           (q, *caches, table, lengths, *scales))
+    else:
+        op, plain, args = (decode_attention, naive.naive_decode_attention,
+                           (q, *caches, lengths, *scales))
+    mode = (E, quantized, window is not None, True)
+    before = op.mode_launches.get(mode, 0)
+    got = op(*args, **kw)
+    assert op.mode_launches[mode] == before + 1
+    assert (got[0] == 0).all()  # the empty slot
+    torch.testing.assert_close(got, plain(*args, **kw), **TOL)
+    uncapped = plain(*args, **dict(kw, softcap=None))
+    assert (got.float() - uncapped.float()).abs().max().item() > TOL["atol"]
