@@ -1,6 +1,7 @@
 """Drive the port's serving and training paths once on one H100:
 Llama-3-8B and Mixtral-8x7B, each served and trained; Mistral-7B and
-Gemma-2-2B served.
+Gemma-2-2B served; the NNop.jl op set (softmax, layer norm, attention
+with the pair bias and segment ids) and packed-document training.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,16 @@ non-zero:
      held to a relative error per 64-row tile of each head, A and B at
      Gemma-2's widths, and planted faults that must read above that
      limit: the plain version with the window one key (and one 32-key
-     tile) too wide, or without the softcap.
+     tile) too wide, or without the softcap. The op set: softmax and
+     layer norm forward and backward at (16384, 4096) in f32 and bf16 and
+     softmax at (4096, 128256) (column chunks), held per row to a
+     relative error; C, dQ (with dpair) and dK/dV with the pair bias
+     (N(0, 1)) at bench.py's reference grid and the 8B training geometry,
+     with segment ids at attn8b_seg, and at head dims 32 and 96 (padded),
+     per 64-row tile (dpair per 64 x 64 tile); planted faults (the
+     softmax denominator without a column chunk, layer norm without the
+     mean, no pair, dpair without a key tile, a document boundary moved
+     by one key) must read above those limits.
   4. bf16 path: Llama-3-8B at full width and depth (random bf16 weights
      from a seeded torch.Generator on the card) behind the port's
      EngineServer; 4 concurrent /v1/completions requests (one through
@@ -80,10 +90,21 @@ non-zero:
      and load_hf_llama: greedy streams identical to the same weights served
      directly. Window launches of C and D in (a)-(c), softcap launches in
      (c), first-token cosine >= 0.99 on every prompt, peak memory.
+ 12. the op set, after 11: (a) online_softmax, layer_norm and
+     flash_attention with the pair and with segment ids through
+     torch.autograd at phase 3's shapes, one launch of each kernel per
+     call, exact; (b) Llama-3-8B at full width with 2 layers, B 1, L
+     4096, on a row of random documents (200-1800 tokens) packed by
+     pack_tokens_segmented with positions reset per document:
+     forward(segment_ids=, positions=), the mean next-token
+     cross-entropy and its backward with exact launches (C, dQ and dK/dV
+     in their segment modes); each document's logits against the
+     document run alone (cosine >= 0.999), every gradient leaf against
+     plain=True (cosine >= 0.9995); the step's ms and peak memory.
 Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
 (the new kernel) and dx (kernel I on the transposed experts), a planted
 fault, two bit-identical dw runs, experts without a row.
-Each serving phase (and phases 8b and 10b) sets the launch counts to 0
+Each serving phase (and phases 8b, 10b and 12) sets the launch counts to 0
 just before it runs and reads them just after. The seconds of each phase
 are printed before the last two lines: {"kernels": [...]}, then {"ok":
 true, "device": {...}}.
@@ -391,6 +412,7 @@ def phase_kernels():
     phase_grouped_bwd(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
     phase_family_kernels(p3, gen, randn)
+    phase_opset_kernels(p3, gen, randn)
     return p3.results
 
 
@@ -972,6 +994,321 @@ def phase_family_kernels(p3, gen, randn):
                   bound(moved, 0, "f32"), None, not quantized)
         del cache_args, got, pairs
         torch.cuda.empty_cache()
+
+
+ROW_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+ROW_REL_WHY = ("|got - plain| / |plain| per row (a softmax row of 4096 values near 2.4e-4 passes "
+               "any absolute 2e-2): f32 sums in another order (~1e-7), or one bf16 rounding of "
+               "the output (<= 2^-9)")
+SUM_REL_TOL = 1e-4
+SUM_REL_WHY = "|got - plain| / |plain|: f32 sums over 16384 rows taken in another order"
+OPSET_ATTN_WHY = ("|got - plain| / |plain| per 64-row query or key tile of each head (dpair per "
+                  "64 x 64 tile): bf16 outputs, and P and dS rounded to bf16 where the f32 sums "
+                  "before them differ in order (<= 2^-9 each)")
+
+
+def row_rel_err(got, ref):
+    """The largest |got - ref| / |ref| (norms over the last axis) over the
+    rows: each row against its own scale."""
+    got, ref = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    return ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def tile2d_rel_err(got, ref, tile=64):
+    """tile_rel_err over the tile x tile blocks of (B, H, QL, KL) tensors
+    (dpair): a block whose reference is zero (masked, or past the causal
+    diagonal) must be zero."""
+    def tiles(t):
+        t = torch.nn.functional.pad(t.float(), (0, -t.shape[3] % tile, 0, -t.shape[2] % tile))
+        B, H, R, C = t.shape
+        return t.reshape(B, H, R // tile, tile, C // tile, tile).transpose(3, 4).reshape(
+            B, H, R // tile, C // tile, tile * tile)
+
+    dn, rn = tiles(got - ref.to(got.dtype)).norm(dim=-1), tiles(ref).norm(dim=-1)
+    zero = rn == 0
+    if bool((dn[zero] > 0).any()):
+        return float("inf")
+    return (dn[~zero] / rn[~zero]).max().item()
+
+
+def _by_batch(fn, *ts, **kw):
+    """fn one batch element at a time (the plain attention's fp32 (QH, QL,
+    KL) intermediates are 2.1 GB each at L 4096), outputs concatenated;
+    tensors of kw with a batch axis are sliced too."""
+    outs = []
+    for b in range(ts[0].shape[0]):
+        sl = {k: (tuple(t[b:b + 1] for t in v) if isinstance(v, tuple) else
+                  v[b:b + 1] if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        outs.append(fn(*(t[b:b + 1] for t in ts), **sl))
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def phase_opset_kernels(p3, gen, randn):
+    """The op set's kernels: softmax and layer norm forward and backward at
+    bench.py's (16384, 4096) in f32 and bf16 and softmax at Llama-3-8B's
+    vocab (4096, 128256, column chunks); C, dQ (dpair) and dK/dV with the
+    pair bias (N(0, 1)) at bench.py's reference grid and at the 8B
+    training geometry, and with segment ids at attn8b_seg; head dims 32 and
+    96 (padded); planted faults for each."""
+    import torch.nn.functional as F
+
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
+    from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
+    from nnop_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from nnop_tpu_torch.ops.softmax import softmax_bwd, softmax_fwd
+
+    dev = torch.device("cuda")
+    f32, bf = torch.float32, torch.bfloat16
+
+    # softmax: bytes read and written once each (the bound), ~5 flops an element
+    for shape, dt, main in (((16384, 4096), f32, True), ((16384, 4096), bf, False),
+                            ((4096, 128256), f32, False)):
+        case = f"{shape} {str(dt)[6:]}" + (" (column chunks)" if shape[1] > 16384 else "")
+        x, dy = randn(*shape, dtype=dt), randn(*shape, dtype=dt)
+        y = softmax_fwd(x)
+        ref = naive.naive_softmax(x)
+        lib = (library_ms("online_softmax", lambda: torch.softmax(x, dim=-1)) if main else None)
+        p3.report("online_softmax", case, row_rel_err(y, ref), ROW_REL_TOL[dt], ROW_REL_WHY,
+                  device_ms(lambda: softmax_fwd(x)), device_ms(lambda: naive.naive_softmax(x)),
+                  bound(2 * nbytes(x), 5 * x.numel(), "f32"), lib, main,
+                  measure="row relative error", abs_err=max_err(y, ref))
+        chunk = 8192 if shape[1] > 16384 else shape[1] // 8  # a column chunk left out
+        xf = x.float()
+        e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+        fault = (e / e[:, :-chunk].sum(dim=-1, keepdim=True)).to(dt)
+        _row_fault("online_softmax", f"{case}: the denominator without its last {chunk} "
+                   "columns", row_rel_err(y, fault), ROW_REL_TOL[dt])
+        del xf, e, fault, ref
+        dx = softmax_bwd(y, dy)
+        ref = naive.naive_softmax_bwd(y, dy)
+        lib = None
+        if main:
+            xg = x.clone().requires_grad_(True)
+            y_lib = torch.softmax(xg, dim=-1)
+            lib = library_ms("online_softmax_bwd", lambda: torch.autograd.grad(
+                y_lib, xg, dy, retain_graph=True))
+            del xg, y_lib
+        p3.report("online_softmax_bwd", case, row_rel_err(dx, ref), ROW_REL_TOL[dt],
+                  ROW_REL_WHY, device_ms(lambda: softmax_bwd(y, dy)),
+                  device_ms(lambda: naive.naive_softmax_bwd(y, dy)),
+                  bound(3 * nbytes(x), 4 * x.numel(), "f32"), lib, main,
+                  measure="row relative error", abs_err=max_err(dx, ref))
+        del x, dy, y, dx, ref
+        torch.cuda.empty_cache()
+
+    # layer norm: inputs with a row mean away from 0, so that a kernel
+    # without the mean fails
+    E = 4096
+    for dt, main in ((f32, True), (bf, False)):
+        case = f"(16384, {E}) {str(dt)[6:]}"
+        x = (2 * torch.randn(16384, E, generator=gen, device=dev) + 0.5).to(dt)
+        w = (1 + 0.1 * torch.randn(E, generator=gen, device=dev)).to(dt)
+        b = (0.1 * torch.randn(E, generator=gen, device=dev)).to(dt)
+        dy = randn(16384, E, dtype=dt)
+        y, mu, sigma = layer_norm_fwd(x, w, b, 1e-5)
+        ref, mu_ref, sigma_ref = naive.naive_layer_norm_fwd(x, w, b, eps=1e-5)
+        stats = max(((mu - mu_ref).abs() / mu_ref.abs().clamp(min=1e-3)).max().item(),
+                    ((sigma - sigma_ref).abs() / sigma_ref).max().item())
+        check(stats <= 1e-5, f"layer_norm: mu/sigma relative error {stats} > 1e-5")
+        xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+        lib = library_ms("layer_norm", lambda: F.layer_norm(x, (E,), w, b, 1e-5)) if main else None
+        p3.report("layer_norm", f"{case} (mu, sigma relative error {stats:.2e} <= 1e-5)",
+                  row_rel_err(y, ref), ROW_REL_TOL[dt], ROW_REL_WHY,
+                  device_ms(lambda: layer_norm_fwd(x, w, b, 1e-5)),
+                  device_ms(lambda: naive.naive_layer_norm_fwd(x, w, b, eps=1e-5)),
+                  bound(2 * nbytes(x) + nbytes(w, b, mu, sigma), 8 * x.numel(), "f32"), lib,
+                  main, measure="row relative error", abs_err=max_err(y, ref))
+        xf = x.float()
+        fault = (xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-5) * w.float()
+                 + b.float()).to(dt)
+        _row_fault("layer_norm", f"{case}: the plain version without the mean",
+                   row_rel_err(y, fault), ROW_REL_TOL[dt])
+        del xf, fault, ref
+        dx, dw, db = layer_norm_bwd(x, w, mu, sigma, dy)
+        dx_ref, dw_ref, db_ref = naive.naive_layer_norm_bwd(x, w, mu, sigma, dy)
+        for what, got, want in (("dw", dw, dw_ref), ("db", db, db_ref)):
+            p3.report("layer_norm_bwd", f"{case}: {what} ({E},) f32, summed over 16384 rows",
+                      ((got - want).norm() / want.norm()).item(), SUM_REL_TOL, SUM_REL_WHY,
+                      measure="relative error", abs_err=max_err(got, want))
+        lib = None
+        if main:
+            y_lib = F.layer_norm(xg, (E,), wg, bg, 1e-5)
+            lib = library_ms("layer_norm_bwd", lambda: torch.autograd.grad(
+                y_lib, (xg, wg, bg), dy, retain_graph=True))
+            del y_lib
+        p3.report("layer_norm_bwd", f"{case}: dx", row_rel_err(dx, dx_ref), ROW_REL_TOL[dt],
+                  ROW_REL_WHY, device_ms(lambda: layer_norm_bwd(x, w, mu, sigma, dy)),
+                  device_ms(lambda: naive.naive_layer_norm_bwd(x, w, mu, sigma, dy)),
+                  bound(3 * nbytes(x) + nbytes(w, mu, sigma, dw, db), 12 * x.numel(), "f32"),
+                  lib, main, measure="row relative error", abs_err=max_err(dx, dx_ref))
+        del x, w, b, dy, y, mu, sigma, dx, dw, db, dx_ref, xg, wg, bg
+        torch.cuda.empty_cache()
+
+    def attn_case(name, case, q, k, v, do, kw, main=False, faults=(), timed=False, lib_kw=None):
+        """C, then dQ and dK/dV through autograd (dpair as the pair's
+        gradient), against the plain forward and backward one batch
+        element at a time; each output per 64-row tile (dpair per 64 x 64
+        tile). Returns the kernel's o and gradients."""
+        pair, E = kw.get("pair"), q.shape[-1]
+        o, lse = flash_fwd(q, k, v, **kw)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if pair is not None:
+            leaves.append(pair.clone().requires_grad_(True))
+        out = flash_attention(*leaves[:3], leaves[3] if pair is not None else None,
+                              causal=kw["causal"], kpad_mask=kw.get("kpad_mask"),
+                              segment_ids=kw.get("segment_ids"))
+        check(torch.equal(out, o), f"{name} [{case}]: flash_attention's o differs from C's")
+        grads = torch.autograd.grad(out, leaves, do)
+        del out, leaves
+        o_ref = _by_batch(lambda *t, **k_: naive.naive_attention(*t, return_lse=True, **k_),
+                          q, k, v, **kw)[0]
+        ref = _by_batch(naive.naive_attention_bwd, q, k, v, o, lse, do, **kw)
+        fwd_name = f"flash_fwd_{name}"
+        stats = {}
+        if timed:
+            mask = lib_kw.pop("attn_mask")
+            sdpa = functools.partial(F.scaled_dot_product_attention, scale=kw["scale"],
+                                     enable_gqa=True, attn_mask=mask, **lib_kw)
+            stats = dict(
+                fwd=(device_ms(lambda: flash_fwd(q, k, v, **kw), n=5),
+                     device_ms(lambda: _by_batch(
+                         lambda *t, **k_: naive.naive_attention(*t, return_lse=True, **k_),
+                         q, k, v, **kw), n=1, reps=3),
+                     library_ms(fwd_name, lambda: sdpa(q, k, v), n=5)),
+                dq=device_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw), n=5),
+                plain=device_ms(lambda: _by_batch(naive.naive_attention_bwd, q, k, v, o, lse,
+                                                  do, **kw), n=1, reps=3))
+            _, delta = flash_bwd_dq(q, k, v, o, lse, do, want_dpair=False, **kw)[:2]
+            stats["dkv"] = device_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw), n=5)
+            lg = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            if mask.is_floating_point():
+                mask = mask.clone().requires_grad_(True)
+                lg.append(mask)
+            graph = []
+
+            def sdpa_bwd():
+                if not graph:
+                    graph.append(F.scaled_dot_product_attention(
+                        *lg[:3], scale=kw["scale"], enable_gqa=True, attn_mask=mask, **lib_kw))
+                return torch.autograd.grad(graph[0], lg, do, retain_graph=True)
+
+            stats["lib_bwd"] = library_ms(f"flash_bwd_dq_{name}", sdpa_bwd, n=5)
+            del lg, graph, mask, delta
+        ms, plain_ms, lib = stats.get("fwd", (None, None, None))
+        p3.report(fwd_name, case, tile_rel_err(o, o_ref), ATTN_REL_TOL, OPSET_ATTN_WHY, ms,
+                  plain_ms, bound(*timed["fwd"], "bf16") if timed else None, lib, main,
+                  measure="tile relative error", abs_err=max_err(o, o_ref))
+        for what, over in faults:
+            want = _by_batch(lambda *t, **k_: naive.naive_attention(*t, return_lse=True, **k_),
+                             q, k, v, **dict(kw, **over))[0]
+            _planted(fwd_name, what, tile_rel_err(o, want))
+        errs = [tile_rel_err(g, r) for g, r in zip(grads[:3], ref[:3])]
+        abs_errs = [max_err(g, r) for g, r in zip(grads[:3], ref[:3])]
+        dq_err, dq_abs = errs[0], abs_errs[0]
+        if pair is not None:
+            dq_err = max(dq_err, tile2d_rel_err(grads[3], ref[3]))
+            dq_abs = max(dq_abs, max_err(grads[3], ref[3]))
+        p3.report(f"flash_bwd_dq_{name}", case + ": dq" + (", dpair" if pair is not None else ""),
+                  dq_err, BWD_REL_TOL, OPSET_ATTN_WHY, stats.get("dq"), stats.get("plain"),
+                  bound(*timed["dq"], "bf16") if timed else None, stats.get("lib_bwd"), main,
+                  measure="tile relative error", abs_err=dq_abs)
+        p3.report(f"flash_bwd_dkv_{name}", case + ": dk, dv", max(errs[1:]), BWD_REL_TOL,
+                  OPSET_ATTN_WHY, stats.get("dkv"), stats.get("plain"),
+                  bound(*timed["dkv"], "bf16") if timed else None, stats.get("lib_bwd"), main,
+                  measure="tile relative error", abs_err=max(abs_errs[1:]))
+        return o, grads, ref
+
+    # pair bias at bench.py's reference grid (B 4, H 4, L 2048, E 64; causal
+    # x kpad), pair N(0, 1)
+    B, H, L, E = 4, 4, 2048, 64
+    q, k, v, do = (randn(B, H, L, E) for _ in range(4))
+    pair = randn(B, H, L, L)
+    kpad = torch.rand(B, L, generator=gen, device=dev) > 0.2
+    kpad[:, 0] = True
+    for causal in (False, True):
+        for use_pad in (False, True):
+            kw = dict(causal=causal, scale=E ** -0.5, pair=pair,
+                      kpad_mask=kpad if use_pad else None)
+            attn_case("pair", f"reference grid (4, 4, 2048, 64), pair N(0, 1), causal {causal}, "
+                      f"kpad {use_pad}", q, k, v, do, kw)
+    del q, k, v, do, pair, kpad
+    torch.cuda.empty_cache()
+
+    # the 8B training geometry with the pair: (2, 32, 4096, 4096) bf16 N(0, 1)
+    L, E = 4096, 128
+    q, k, v, do = (randn(2, h, L, E) for h in (32, 8, 8, 32))
+    pair = randn(2, 32, L, L)
+    causal_mask = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
+    pairs = 2 * 32 * L * (L + 1) // 2
+    live_pair = pairs * pair.element_size()  # the pair elements a causal row reads
+    io = nbytes(q, k, v, q) + 2 * 32 * L * 4  # q, k, v, o, lse
+    timed = dict(fwd=(io + live_pair, 4 * E * pairs),
+                 dq=(io + nbytes(do, q) + 2 * 32 * L * 4 + live_pair + nbytes(pair),
+                     3 * 2 * E * pairs),
+                 dkv=(io + nbytes(do, k, v) + 2 * 32 * L * 4 + live_pair, 4 * 2 * E * pairs))
+    kw = dict(causal=True, scale=E ** -0.5, pair=pair)
+    o, grads, ref = attn_case(
+        "pair", "8B training geometry: q (2, 32, 4096, 128), kv (2, 8, 4096, 128), causal, "
+        "pair (2, 32, 4096, 4096) bf16 N(0, 1)", q, k, v, do, kw, main=True,
+        faults=[("the plain version without the pair", dict(pair=None))], timed=timed,
+        lib_kw=dict(attn_mask=pair.masked_fill(~causal_mask, float("-inf"))))
+    left_out = grads[3].clone()
+    left_out[..., 64:128] = 0  # dpair with key tile 1 left out
+    _planted("flash_bwd_dq_pair", "dpair with key tile 1 left out",
+             tile2d_rel_err(left_out, ref[3]))
+    print(f"phase 3 flash_bwd_pair: the whole backward's bound by bytes (dpair written "
+          f"whole, pair read by both kernels) "
+          f"{(2 * live_pair + nbytes(pair)) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del o, grads, ref, left_out, pair
+    torch.cuda.empty_cache()
+
+    # segment ids at attn8b_seg (bench.py:600-602): four documents of 1024
+    seg = torch.arange(4, device=dev, dtype=torch.int32).repeat_interleave(1024).expand(2, L)
+    moved = seg.clone()
+    moved[:, 1024] = 0  # the first boundary one key later (keys only)
+    doc_mask = causal_mask & (seg[0][:, None] == seg[0][None, :])
+    visible = 2 * 32 * 4 * 1024 * 1025 // 2
+    io = nbytes(q, k, v, q) + 2 * 32 * L * 4 + 2 * nbytes(seg)
+    timed = dict(fwd=(io, 4 * E * visible),
+                 dq=(io + nbytes(do, q) + 2 * 32 * L * 4, 3 * 2 * E * visible),
+                 dkv=(io + nbytes(do, k, v) + 2 * 32 * L * 4, 4 * 2 * E * visible))
+    kw = dict(causal=True, scale=E ** -0.5, segment_ids=(seg, seg))
+    attn_case("segments", "attn8b_seg: q (2, 32, 4096, 128), kv (2, 8, 4096, 128), causal, "
+              "4 documents of 1024", q, k, v, do, kw, main=True,
+              faults=[("a document boundary one key later", dict(segment_ids=(seg, moved)))],
+              timed=timed, lib_kw=dict(attn_mask=doc_mask))
+    del q, k, v, do, seg, moved, doc_mask, causal_mask
+    torch.cuda.empty_cache()
+
+    # head dims the kernels reach by zero-padding: 32 -> 64, 96 -> 128
+    for E in (32, 96):
+        q, k, v, do = (randn(2, h, 1000, E) for h in (32, 8, 8, 32))
+        kw = dict(causal=True, scale=E ** -0.5)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(out, leaves, do)
+        o_ref, lse_ref = _by_batch(
+            lambda *t, **k_: naive.naive_attention(*t, return_lse=True, **k_), q, k, v, **kw)
+        ref = _by_batch(naive.naive_attention_bwd, q, k, v, o_ref, lse_ref, do, **kw)
+        case = f"head dim {E} (run at {64 if E == 32 else 128}): q (2, 32, 1000, {E}), causal"
+        p3.report("flash_fwd", case, tile_rel_err(out, o_ref), ATTN_REL_TOL, OPSET_ATTN_WHY,
+                  measure="tile relative error", abs_err=max_err(out, o_ref))
+        p3.report("flash_bwd_dq", case, tile_rel_err(grads[0], ref[0]), BWD_REL_TOL,
+                  OPSET_ATTN_WHY, measure="tile relative error")
+        p3.report("flash_bwd_dkv", case, max(tile_rel_err(g, r) for g, r in
+                                            zip(grads[1:], ref[1:])), BWD_REL_TOL,
+                  OPSET_ATTN_WHY, measure="tile relative error")
+        del q, k, v, do, leaves, out, grads, o_ref, lse_ref, ref
+    torch.cuda.empty_cache()
+
+
+def _row_fault(name, what, err, tol):
+    """A planted row fault: the kernel's output against the plain version
+    of a wrong computation must read above the row tolerance."""
+    print(f"phase 3 {name} [planted fault: {what}]: row relative error {err:.3e} (must "
+          f"exceed {tol:g})")
+    check(err > tol, f"{name}: the planted fault ({what}) reads {err}")
 
 
 def phase_products(p3, gen, randn):
@@ -1697,6 +2034,161 @@ def phase_grad_parity():
     torch.cuda.empty_cache()
 
 
+OPSET_ENTRIES = ("online_softmax", "online_softmax_bwd", "layer_norm", "layer_norm_bwd",
+                 "flash_fwd_pair", "flash_bwd_dq_pair", "flash_bwd_dkv_pair",
+                 "flash_fwd_segments", "flash_bwd_dq_segments", "flash_bwd_dkv_segments")
+PACKED_COS = 0.999
+PACKED_WHY = ("bf16 activations: the packed row and the document alone run the same kernels "
+              "on the same rows, but the products see other row counts and sum in another "
+              "order")
+
+
+def _exact_launches(tag, counters, expected, fn):
+    """Run fn with every counter set to 0 just before and read just after:
+    each must read its expected count (0 where none is given)."""
+    for c in counters:
+        c.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {c.name: c.read() for c in counters}
+    wrong = {n: (v, expected.get(n, 0)) for n, v in counts.items() if v != expected.get(n, 0)}
+    check(not wrong, f"{tag}: launches (got, expected) {wrong}")
+    print(f"phase {tag} launches: " + ", ".join(f"{n} {v}" for n, v in counts.items() if v)
+          + " (exact; every other kernel 0)")
+    return out, counts
+
+
+def phase_opset_autograd(counters):
+    """12a: online_softmax, layer_norm and flash_attention with the pair
+    and with segment ids through torch.autograd at phase 3's shapes, as a
+    user calls them: one launch of each kernel per call."""
+    from nnop_tpu_torch import flash_attention, layer_norm, online_softmax
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def grads_of(fn, leaves, dy):
+        def run():
+            out = fn(*leaves)
+            return out, torch.autograd.grad(out, leaves, dy)
+        return run
+
+    launches = {}
+    x, dy = randn(16384, 4096, dtype=torch.float32), randn(16384, 4096, dtype=torch.float32)
+    (y, g), counts = _exact_launches("12a online_softmax", counters, dict(
+        online_softmax=1, online_softmax_bwd=1), grads_of(online_softmax,
+                                                          [x.requires_grad_(True)], dy))
+    check(bool(torch.isfinite(g[0]).all()) and y.dtype == torch.float32, "12a softmax output")
+    launches.update({n: c for n, c in counts.items() if c})
+    del x, dy, y, g
+    leaves = [(2 * randn(16384, 4096, dtype=torch.float32) + 0.5).to(bf),
+              (1 + 0.1 * randn(4096, dtype=torch.float32)).to(bf), 0.1 * randn(4096)]
+    (y, g), counts = _exact_launches("12a layer_norm", counters, dict(
+        layer_norm=1, layer_norm_bwd=1), grads_of(lambda x, w, b: layer_norm(x, w, b, 1e-5),
+                                                  [t.requires_grad_(True) for t in leaves],
+                                                  randn(16384, 4096)))
+    check(all(bool(torch.isfinite(t).all()) and t.dtype == bf for t in g), "12a layer_norm grads")
+    launches.update({n: c for n, c in counts.items() if c})
+    del leaves, y, g
+    q, k, v, do = (randn(2, h, 4096, 128) for h in (32, 8, 8, 32))
+    pair = randn(2, 32, 4096, 4096)
+    seg = torch.arange(4, device=dev, dtype=torch.int32).repeat_interleave(1024).expand(2, 4096)
+    for tag, extra, fn in (
+        ("pair", dict(pair=pair), lambda q, k, v, p: flash_attention(q, k, v, p, causal=True)),
+        ("segments", {}, lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                                         segment_ids=(seg, seg))),
+    ):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, *extra.values())]
+        (o, g), counts = _exact_launches(f"12a flash_attention({tag})", counters, {
+            f"flash_fwd_{tag}": 1, f"flash_bwd_dq_{tag}": 1, f"flash_bwd_dkv_{tag}": 1,
+            "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}, grads_of(fn, leaves, do))
+        check(all(bool(torch.isfinite(t).all()) for t in (o, *g)), f"12a {tag}: non-finite")
+        check(len(g) == len(leaves) and g[-1].shape == leaves[-1].shape, f"12a {tag} grads")
+        launches.update({n: c for n, c in counts.items() if c})
+        del leaves, o, g
+    del q, k, v, do, pair, seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_packed(counters, expected):
+    """12b: Llama-3-8B at full width, 2 layers, B 1, L 4096, on one row of
+    random documents (200-1800 tokens) packed by pack_tokens_segmented,
+    positions reset per document: forward(segment_ids=, positions=), the
+    mean next-token cross-entropy and its backward through the kernels
+    with exact launches; every document's logits against the document
+    run alone; every gradient leaf against plain=True."""
+    from nnop_tpu_torch.models.llama import LlamaConfig, forward, init_params
+    from nnop_tpu_torch.parallel.tp_llama import tree_leaves
+    from nnop_tpu_torch.runtime.dataio import pack_tokens_segmented
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.llama3_8b(n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(gen, cfg)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(SEED)
+    docs = [rng.integers(1, cfg.vocab_size, rng.integers(200, 1801)).tolist() for _ in range(8)]
+    rows, segs, poss = (torch.from_numpy(a[:1]).to(dev) for a in
+                        pack_tokens_segmented(docs, seq_len=4096))
+    toks, tgts, seg, pos = rows[:, :-1], rows[:, 1:], segs[:, :-1], poss[:, :-1]
+    n_docs = int(seg.max())
+
+    def step(plain=False):
+        logits = forward(params, toks, cfg, positions=pos, segment_ids=seg, plain=plain)
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -torch.gather(logp, -1, tgts.long()[..., None]).mean()
+        return logits.detach(), loss.item(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.reset_peak_memory_stats()
+    (logits, loss, k_grads), counts = _exact_launches("12b", counters, expected, step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    # every document inside the packed row against the document alone
+    cos, errs = [], []
+    with torch.no_grad():
+        for d in range(1, n_docs + 1):
+            idx = (seg[0] == d).nonzero()[:, 0]
+            alone = forward(params, toks[:, idx], cfg, positions=pos[:, idx])
+            cos.append(_cosine(logits[0, idx], alone[0]))
+            errs.append(max_err(logits[0, idx], alone[0]))
+    print(f"phase 12b packed: Llama-3-8B width, 2 layers, B 1, L 4096: {n_docs} documents "
+          f"(lengths {[int((seg[0] == d).sum()) for d in range(1, n_docs + 1)]}), loss "
+          f"{loss:.6f}; each document's logits against the document alone: cosine min "
+          f"{min(cos):.6f} (>= {PACKED_COS}: {PACKED_WHY}), max abs error {max(errs):.4e}; "
+          f"step (forward, loss, backward) median {statistics.median(times):.1f} ms of "
+          f"{[round(t, 1) for t in times]}; peak {peak:.2f} GiB (max_memory_allocated)")
+    check(min(cos) >= PACKED_COS, f"12b: a document's logits read cosine {min(cos)}")
+    del logits
+    _, p_loss, p_grads = step(plain=True)
+    gcos = [_cosine(a, b) for a, b in zip(k_grads, p_grads)]
+    worst = min(range(len(gcos)), key=gcos.__getitem__)
+    print(f"phase 12b grads: loss kernels {loss:.6f} plain {p_loss:.6f}; {len(gcos)} gradient "
+          f"leaves against plain=True, cosine min {min(gcos):.6f} (leaf {worst}) mean "
+          f"{statistics.mean(gcos):.6f} (>= {GRAD_COS} each: {GRAD_WHY})")
+    check(all(bool(torch.isfinite(g).all()) for g in k_grads), "12b: a non-finite gradient")
+    check(min(gcos) >= GRAD_COS, f"12b: gradient leaf {worst}: cosine {gcos[worst]}")
+    del params, leaves, k_grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 class _PlainCalls:
     """Within the block, every plain version (`naive_*`) the kernel
     modules and the model can reach is replaced by a wrapper that counts
@@ -2008,6 +2500,7 @@ def main():
         grouped_matmul_w8a8,
     )
     from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
+    from nnop_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from nnop_tpu_torch.ops.quantized_matmul import (
         quantized_matmul,
         quantized_matmul4,
@@ -2015,6 +2508,7 @@ def main():
     )
     from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
     from nnop_tpu_torch.ops.rope import llama_rope, llama_rope_bwd
+    from nnop_tpu_torch.ops.softmax import softmax_bwd, softmax_fwd
     from nnop_tpu_torch.runtime.engine import fuse_decode_weights
 
     decode_src, flush_src = "nnop_tpu_torch/csrc/decode_attn.cu", "nnop_tpu_torch/csrc/kv_flush.cu"
@@ -2103,6 +2597,24 @@ def main():
         "flush_staging_e256": (Counter("flush_staging_e256", flush_staging,
                                        mode=lambda E, q8: E == 256 and not q8), "cuda", flush_src,
                                f"{flush_rep}:266"),
+        # the op set (phase 12): the row kernels, and the pair and segment
+        # modes of C, dQ and dK/dV, each counted by its own mode's count
+        "online_softmax": (Counter("online_softmax", softmax_fwd), "triton",
+                           "nnop_tpu_torch/ops/softmax.py", "nnop_tpu/ops/softmax.py:74"),
+        "online_softmax_bwd": (Counter("online_softmax_bwd", softmax_bwd), "triton",
+                               "nnop_tpu_torch/ops/softmax.py", "nnop_tpu/ops/softmax.py:90"),
+        "layer_norm": (Counter("layer_norm", layer_norm_fwd), "triton",
+                       "nnop_tpu_torch/ops/layer_norm.py", "nnop_tpu/ops/layer_norm.py:109"),
+        "layer_norm_bwd": (Counter("layer_norm_bwd", layer_norm_bwd), "triton",
+                           "nnop_tpu_torch/ops/layer_norm.py", "nnop_tpu/ops/layer_norm.py:138"),
+        **{f"{name}_{kind}": (Counter(f"{name}_{kind}", fn, attr), "cuda", src, rep)
+           for kind, attr in (("pair", "pair_launches"), ("segments", "segment_launches"))
+           for name, fn, src, rep in (
+               ("flash_fwd", flash_fwd, flash_src, f"{flash_rep}:1309"),
+               ("flash_bwd_dq", flash_bwd_dq, "nnop_tpu_torch/csrc/flash_bwd.cu",
+                "nnop_tpu/ops/flash_attention_bwd.py:678"),
+               ("flash_bwd_dkv", flash_bwd_dkv, "nnop_tpu_torch/csrc/flash_bwd.cu",
+                "nnop_tpu/ops/flash_attention_bwd.py:724"))},
     }
     seconds, t_start = {}, [time.perf_counter()]
 
@@ -2338,6 +2850,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     done("11d")
+
+    # 12. the op set through torch.autograd as a user calls it (12a), then
+    #     packed-document training of a 2-layer Llama-3-8B (12b)
+    every = [c for c, *_ in entries.values()]
+    record({n: v for n, v in phase_opset_autograd(every).items() if "segments" not in n})
+    record(phase_packed(every, dict(train_launches(2), flash_fwd_segments=2,
+                                    flash_bwd_dq_segments=2, flash_bwd_dkv_segments=2)))
+    done("12")
     print(f"phase seconds: {seconds}; total {sum(seconds.values()):.1f}")
 
     line = {"kernels": [

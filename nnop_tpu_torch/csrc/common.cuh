@@ -57,6 +57,26 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// One element of an attention pair bias (or its gradient), stored as f32
+// or bf16 as `is_f32` says; i is the flat element index.
+__device__ __forceinline__ float load_bf16_or_f32(const void* p, int is_f32, size_t i) {
+  return is_f32 ? static_cast<const float*>(p)[i]
+                : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+__device__ __forceinline__ void store_bf16_or_f32(void* p, int is_f32, size_t i, float x) {
+  if (is_f32)
+    static_cast<float*>(p)[i] = x;
+  else
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+}
+
+// Half `hi` (0: the low, lower-indexed element) of two packed bf16 values,
+// as a float.
+__device__ __forceinline__ float bf16x2_half(uint32_t x, int hi) {
+  return __uint_as_float(hi ? (x & 0xffff0000u) : (x << 16));
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

@@ -5,14 +5,29 @@
 // TPU kernels it dispatches to (_bwd_causal_multicall, _bwd_rect_static,
 // _bwd_causal_chunked and the general dQ / dK/dV grids): one pair of
 // kernels serves causal and non-causal attention, GQA, the key-padding
-// mask and any length, E = 64 or 128.
+// mask, the pair bias (with its gradient dpair) and segment ids, and any
+// length, E = 64 or 128.
 //
 // Math (per query head; s recomputed exactly as kernel C computes it:
-// the fp32 product of bf16 q and k, times scale, so P sums to 1 against
-// C's lse):
+// the fp32 product of bf16 q and k, times scale, plus the pair bias in
+// f32, so P sums to 1 against C's lse):
 //   delta = rowsum(dO * O)                 (fused into the dQ kernel)
 //   P  = exp(s - lse),  dP = dO V^T,  dS = P * (dP - delta)
 //   dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO
+//   dpair = dS (before the scale; nnop_tpu/ops/flash_attention_bwd.py
+//           :218-220), in the pair's dtype
+// The pair bias and segment ids are kExtra, a template flag (pointers
+// nullable inside it), so the plain paths run no test for them. With a
+// pair, the dQ kernel writes dpair once for each (64-row query tile,
+// 64-key tile) it visits, every element (masked ones are exact zeros),
+// and zero-fills the tiles past the causal diagonal it does not visit:
+// every element of dpair is written by the kernel, none left to a
+// memset. A null dpair (the pair needs no gradient) skips those stores.
+// Both kernels read the pair straight from device memory at each visible
+// score (the dK/dV kernel at transposed positions); with a bf16 pair and
+// an even KL the dQ kernel reads the pair and writes dpair two columns an
+// access, and its zero fill 16 bytes a store where the rows allow. Segment ids mask scores but
+// skip no tile yet.
 // P and dS are rounded to bf16 as the A operand of their products; masked
 // entries are exact zeros (a row with no visible key, lse = kMaskValue,
 // gets zero gradients, never NaN); rows and keys past the ends load as
@@ -91,17 +106,20 @@ __device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* base, i
   b[1] = nnop::pack_u16x2(p[8 * kRow], p[9 * kRow]);
 }
 
-template <int E>
+template <int E, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                    const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ dq,
-                    float* __restrict__ delta, int QH, int KH, int QL, int KL, float scale,
-                    int causal) {
+                    const uint8_t* __restrict__ kpad, const void* __restrict__ pair,
+                    const int* __restrict__ qseg, const int* __restrict__ kseg,
+                    __nv_bfloat16* __restrict__ dq, void* __restrict__ dpair,
+                    float* __restrict__ delta, int QH, int KH, int QL, int KL, int pair_f32,
+                    float scale, int causal) {
   constexpr int kSteps = E / 16, kOTiles = E / 8, kRow = E + 8;
   __shared__ __align__(16) __nv_bfloat16 k_s[kBK * kRow];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBK * kRow];
+  __shared__ int kseg_s[kExtra ? kBK : 1];  // the key tile's segment ids (kExtra)
 
   const int n_q = (QL + kBQ - 1) / kBQ;
   const int iq = causal ? n_q - 1 - blockIdx.y : blockIdx.y;  // longest walks first
@@ -115,6 +133,18 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const __nv_bfloat16* kb = k + (size_t)(b * KH + kh) * KL * E;
   const __nv_bfloat16* vb = v + (size_t)(b * KH + kh) * KL * E;
   const uint8_t* kp = kpad ? kpad + (size_t)b * KL : nullptr;
+  // kExtra: this head's pair (and dpair) rows, the keys' segment ids
+  // (staged per key tile in kseg_s) and the two rows' own
+  const size_t pair_off = (size_t)bh * QL * KL;
+  const bool pair_vec = kExtra && !pair_f32 && KL % 2 == 0;  // bf16x2 loads and stores
+  const int* ks = kExtra && kseg != nullptr ? kseg + (size_t)b * KL : nullptr;
+  int qs_lo = 0, qs_hi = 0;
+  if constexpr (kExtra) {
+    if (ks != nullptr) {
+      if (r_lo < QL) qs_lo = qseg[(size_t)b * QL + r_lo];
+      if (r_hi < QL) qs_hi = qseg[(size_t)b * QL + r_hi];
+    }
+  }
 
   // Q and dO fragments in registers (rows past QL are zeros); delta from
   // dO and O at the same positions, summed over the quad of lanes.
@@ -156,7 +186,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 
   auto visible = [&](int row, int col) -> bool {
-    return row < QL && col < KL && (kp == nullptr || kp[col] != 0) && (!causal || col <= row);
+    return row < QL && col < KL && (kp == nullptr || kp[col] != 0) && (!causal || col <= row) &&
+           (!kExtra || ks == nullptr || kseg_s[col % kBK] == (row == r_lo ? qs_lo : qs_hi));
   };
 
   int n_tiles = (KL + kBK - 1) / kBK;
@@ -171,6 +202,10 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     __syncthreads();  // every warp is done with the previous tile
     load_tile<E>(k_s, kb, c0, KL);
     load_tile<E>(v_s, vb, c0, KL);
+    if constexpr (kExtra) {
+      if (ks != nullptr && threadIdx.x < kBK)
+        kseg_s[threadIdx.x] = c0 + threadIdx.x < KL ? ks[c0 + threadIdx.x] : 0;
+    }
     __syncthreads();
 
 #pragma unroll
@@ -195,13 +230,47 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       // P = exp(s - lse) and dS = P (dP - delta), masked entries exact zeros
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
+        uint32_t pv[2] = {0u, 0u};  // kExtra, pair_vec: two columns of each row a load
+        if constexpr (kExtra) {
+          const int col = c0 + sub * kSub + n * 8 + 2 * t;  // even: col + 1 < KL too
+          const auto* pb = static_cast<const __nv_bfloat16*>(pair) + pair_off;
+          if (pair != nullptr && pair_vec && col < KL) {
+            if (r_lo < QL) pv[0] = *reinterpret_cast<const uint32_t*>(pb + (size_t)r_lo * KL + col);
+            if (r_hi < QL) pv[1] = *reinterpret_cast<const uint32_t*>(pb + (size_t)r_hi * KL + col);
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool lo = e < 2;
           const int col = c0 + sub * kSub + n * 8 + 2 * t + (e & 1);
           const bool vis = visible(lo ? r_lo : r_hi, col);
-          const float p = vis ? __expf(s[n][e] * scale - (lo ? ls_lo : ls_hi)) : 0.f;
+          float sv = s[n][e] * scale;
+          if constexpr (kExtra) {
+            const size_t at = pair_off + (size_t)(lo ? r_lo : r_hi) * KL + col;
+            if (pair != nullptr && vis)
+              sv += pair_vec ? nnop::bf16x2_half(pv[e >> 1], e & 1)
+                             : nnop::load_bf16_or_f32(pair, pair_f32, at);
+          }
+          const float p = vis ? __expf(sv - (lo ? ls_lo : ls_hi)) : 0.f;
           s[n][e] = vis ? p * (dp[n][e] - (lo ? dl_lo : dl_hi)) : 0.f;
+          if constexpr (kExtra) {  // dpair = dS, masked entries 0
+            const int row = lo ? r_lo : r_hi;
+            if (dpair != nullptr && !pair_vec && row < QL && col < KL)
+              nnop::store_bf16_or_f32(dpair, pair_f32, pair_off + (size_t)row * KL + col,
+                                      s[n][e]);
+          }
+        }
+        if constexpr (kExtra) {  // the same, two columns a store
+          const int col = c0 + sub * kSub + n * 8 + 2 * t;  // even: col + 1 < KL too
+          auto* db = static_cast<__nv_bfloat16*>(dpair) + pair_off;
+          if (dpair != nullptr && pair_vec && col < KL) {
+            if (r_lo < QL)
+              *reinterpret_cast<uint32_t*>(db + (size_t)r_lo * KL + col) =
+                  nnop::pack_bf16x2(s[n][0], s[n][1]);
+            if (r_hi < QL)
+              *reinterpret_cast<uint32_t*>(db + (size_t)r_hi * KL + col) =
+                  nnop::pack_bf16x2(s[n][2], s[n][3]);
+          }
         }
       }
       // dQ += dS K: two adjacent 8-key accumulators are one A fragment
@@ -223,6 +292,23 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
   }
 
+  if constexpr (kExtra) {  // dpair past the causal diagonal: zeros
+    const int c_from = n_tiles * kBK, r0 = iq * kBQ;
+    const int nr = min(kBQ, QL - r0), nc = KL - c_from;
+    const int elem = pair_f32 ? 4 : 2;
+    if (dpair != nullptr && nc > 0 && KL * elem % 16 == 0) {  // 16-byte stores
+      const int vecs = nc * elem / 16;  // per row (c_from * elem is a multiple of 16)
+      for (int i = threadIdx.x; i < nr * vecs; i += kThreads)
+        reinterpret_cast<uint4*>(static_cast<char*>(dpair) +
+                                 (pair_off + (size_t)(r0 + i / vecs) * KL + c_from) * elem)
+            [i % vecs] = make_uint4(0, 0, 0, 0);
+    } else if (dpair != nullptr && nc > 0) {
+      for (int i = threadIdx.x; i < nr * nc; i += kThreads)
+        nnop::store_bf16_or_f32(dpair, pair_f32,
+                                pair_off + (size_t)(r0 + i / nc) * KL + c_from + i % nc, 0.f);
+    }
+  }
+
   __nv_bfloat16* qb = dq + qoff;
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n) {
@@ -236,19 +322,22 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int E>
+// K, V, Q and dO tiles, lse and delta rows (and with kExtra the Q tile's
+// segment ids)
+template <int E, bool kExtra>
 constexpr int dkv_smem_bytes() {
-  return 4 * 64 * (E + 8) * 2 + 2 * kBQ * 4;
+  return 4 * 64 * (E + 8) * 2 + (kExtra ? 3 : 2) * kBQ * 4;
 }
 
-template <int E>
+template <int E, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const uint8_t* __restrict__ kpad, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int QH, int KH, int QL, int KL, float scale,
-                     int causal) {
+                     const uint8_t* __restrict__ kpad, const void* __restrict__ pair,
+                     const int* __restrict__ qseg, const int* __restrict__ kseg,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int QH,
+                     int KH, int QL, int KL, int pair_f32, float scale, int causal) {
   constexpr int kSteps = E / 16, kOTiles = E / 8, kRow = E + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -257,6 +346,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   __nv_bfloat16* d_s = q_s + kBQ * kRow;
   float* lse_s = reinterpret_cast<float*>(d_s + kBQ * kRow);
   float* dl_s = lse_s + kBQ;
+  int* qs_s = reinterpret_cast<int*>(dl_s + kBQ);  // kExtra with segment ids only
 
   const int j = blockIdx.y;  // key tile: the longest causal walk (j = 0) first
   const int bkh = blockIdx.x, b = bkh / KH, kh = bkh % KH;
@@ -268,6 +358,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const uint8_t* kp = kpad ? kpad + (size_t)b * KL : nullptr;
   const bool ok_lo = key_lo < KL && (kp == nullptr || kp[key_lo] != 0);
   const bool ok_hi = key_hi < KL && (kp == nullptr || kp[key_hi] != 0);
+  const bool has_seg = kExtra && kseg != nullptr;
+  const int ks_lo = has_seg && key_lo < KL ? kseg[(size_t)b * KL + key_lo] : 0;
+  const int ks_hi = has_seg && key_hi < KL ? kseg[(size_t)b * KL + key_hi] : 0;
 
   load_tile<E>(k_s, k + (size_t)bkh * KL * E, k0, KL);
   load_tile<E>(v_s, v + (size_t)bkh * KL * E, k0, KL);
@@ -286,6 +379,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const __nv_bfloat16* db = dout + (size_t)bh * QL * E;
     const float* lb = lse + (size_t)bh * QL;
     const float* deb = delta + (size_t)bh * QL;
+    const size_t pair_off = (size_t)bh * QL * KL;
     for (int i = i0; i < n_q; ++i) {
       const int q0 = i * kBQ;
       __syncthreads();  // every warp is done with the previous Q/dO tile
@@ -295,6 +389,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         const int r = q0 + threadIdx.x;
         lse_s[threadIdx.x] = r < QL ? lb[r] : 0.f;
         dl_s[threadIdx.x] = r < QL ? deb[r] : 0.f;
+        if constexpr (kExtra)
+          if (has_seg) qs_s[threadIdx.x] = r < QL ? qseg[(size_t)b * QL + r] : 0;
       }
       __syncthreads();
 
@@ -329,8 +425,15 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
             const int qi = sub * kSub + n * 8 + 2 * t + (e & 1);  // row of the Q tile
             const int key = lo ? key_lo : key_hi;
             const bool vis =
-                (lo ? ok_lo : ok_hi) && q0 + qi < QL && (!causal || key <= q0 + qi);
-            const float p = vis ? __expf(s[n][e] * scale - lse_s[qi]) : 0.f;
+                (lo ? ok_lo : ok_hi) && q0 + qi < QL && (!causal || key <= q0 + qi) &&
+                (!has_seg || qs_s[qi] == (lo ? ks_lo : ks_hi));
+            float sv = s[n][e] * scale;
+            if constexpr (kExtra) {
+              if (pair != nullptr && vis)
+                sv += nnop::load_bf16_or_f32(pair, pair_f32,
+                                             pair_off + (size_t)(q0 + qi) * KL + key);
+            }
+            const float p = vis ? __expf(sv - lse_s[qi]) : 0.f;
             s[n][e] = p;
             dp[n][e] = vis ? p * (dp[n][e] - dl_s[qi]) : 0.f;
           }
@@ -382,86 +485,84 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int E>
-cudaError_t launch_dkv(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
-                       const float* delta, const uint8_t* kpad, __nv_bfloat16* dk,
-                       __nv_bfloat16* dv, int QH, int KH, int QL, int KL, float scale,
-                       int causal) {
-  constexpr int bytes = dkv_smem_bytes<E>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<E><<<grid, kThreads, bytes, st>>>(q, k, v, dout, lse, delta, kpad, dk, dv,
-                                                         QH, KH, QL, KL, scale, causal);
+template <int E, bool kExtra, typename... Args>
+cudaError_t launch_dq(dim3 grid, cudaStream_t st, Args... args) {
+  flash_bwd_dq_kernel<E, kExtra><<<grid, kThreads, 0, st>>>(args...);
   return cudaGetLastError();
 }
+
+template <int E, bool kExtra, typename... Args>
+cudaError_t launch_dkv(dim3 grid, cudaStream_t st, Args... args) {
+  constexpr int bytes = dkv_smem_bytes<E, kExtra>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<E, kExtra>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<E, kExtra><<<grid, kThreads, bytes, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// The instantiation for E (64 or 128) and the extra score terms.
+template <template <int, bool> class Launch, typename... Args>
+cudaError_t dispatch(int E, bool extra, Args... args) {
+  switch (E) {
+    case 64: return extra ? Launch<64, true>::run(args...) : Launch<64, false>::run(args...);
+    case 128: return extra ? Launch<128, true>::run(args...) : Launch<128, false>::run(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int E, bool kExtra>
+struct DqLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dq<E, kExtra>(args...); }
+};
+
+template <int E, bool kExtra>
+struct DkvLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dkv<E, kExtra>(args...); }
+};
 
 }  // namespace
 
 // q, o, dout, dq (B, QH, QL, E); k, v (B, KH, KL, E): bf16, contiguous.
 // lse, delta (B, QH, QL) f32 (delta is written); kpad (B, KL) uint8 or
-// null. E is 64 or 128.
+// null; pair (B, QH, QL, KL) f32 (pair_f32) or bf16, or null, and dpair
+// of its shape and dtype (written) or null; q_seg (B, QL) and kv_seg
+// (B, KL) int32, both or neither. E is 64 or 128.
 extern "C" int nnop_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                 const void* dout, const void* lse, const void* kpad, void* dq,
-                                 void* delta, int B, int QH, int KH, int QL, int KL, int E,
-                                 float scale, int causal, void* stream) {
+                                 const void* dout, const void* lse, const void* kpad,
+                                 const void* pair, const void* q_seg, const void* kv_seg,
+                                 void* dq, void* dpair, void* delta, int B, int QH, int KH,
+                                 int QL, int KL, int E, int pair_f32, float scale, int causal,
+                                 void* stream) {
   const dim3 grid(B * QH, (QL + kBQ - 1) / kBQ);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* op = static_cast<const __nv_bfloat16*>(o);
-  const auto* dp = static_cast<const __nv_bfloat16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* pp = static_cast<const uint8_t*>(kpad);
-  auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  auto* dlp = static_cast<float*>(delta);
-  switch (E) {
-    case 64:
-      flash_bwd_dq_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, dp, lp, pp, dqp, dlp, QH,
-                                                         KH, QL, KL, scale, causal);
-      break;
-    case 128:
-      flash_bwd_dq_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, dp, lp, pp, dqp, dlp,
-                                                          QH, KH, QL, KL, scale, causal);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch<DqLaunch>(
+      E, pair != nullptr || q_seg != nullptr, grid, static_cast<cudaStream_t>(stream),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const uint8_t*>(kpad), pair, static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<__nv_bfloat16*>(dq), dpair,
+      static_cast<float*>(delta), QH, KH, QL, KL, pair_f32, scale, causal));
 }
 
 // q, dout (B, QH, QL, E); k, v, dk, dv (B, KH, KL, E): bf16, contiguous.
 // lse, delta (B, QH, QL) f32 (delta from nnop_flash_bwd_dq); kpad (B, KL)
-// uint8 or null. E is 64 or 128.
+// uint8 or null; pair, q_seg, kv_seg as for nnop_flash_bwd_dq. E is 64
+// or 128.
 extern "C" int nnop_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, const void* kpad, void* dk,
-                                  void* dv, int B, int QH, int KH, int QL, int KL, int E,
-                                  float scale, int causal, void* stream) {
+                                  const void* lse, const void* delta, const void* kpad,
+                                  const void* pair, const void* q_seg, const void* kv_seg,
+                                  void* dk, void* dv, int B, int QH, int KH, int QL, int KL,
+                                  int E, int pair_f32, float scale, int causal, void* stream) {
   const dim3 grid(B * KH, (KL + kBK - 1) / kBK);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* dp = static_cast<const __nv_bfloat16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dlp = static_cast<const float*>(delta);
-  const auto* pp = static_cast<const uint8_t*>(kpad);
-  auto* dkp = static_cast<__nv_bfloat16*>(dk);
-  auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  cudaError_t err;
-  switch (E) {
-    case 64:
-      err = launch_dkv<64>(grid, st, qp, kp, vp, dp, lp, dlp, pp, dkp, dvp, QH, KH, QL, KL, scale,
-                           causal);
-      break;
-    case 128:
-      err = launch_dkv<128>(grid, st, qp, kp, vp, dp, lp, dlp, pp, dkp, dvp, QH, KH, QL, KL,
-                            scale, causal);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<DkvLaunch>(
+      E, pair != nullptr || q_seg != nullptr, grid, static_cast<cudaStream_t>(stream),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(kpad), pair, static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), QH, KH, QL, KL, pair_f32, scale, causal));
 }

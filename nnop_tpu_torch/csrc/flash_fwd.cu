@@ -5,8 +5,8 @@
 // dispatches to on the TPU (_fwd_kernel_rect, _causal_strip_kernel via
 // _fwd_causal_window and _fwd_causal_chunked, _rect_static_kernel, ...):
 // one kernel serves bucketed prefill (causal), chunked prefill (causal
-// from a row offset, with a key-padding mask), the sliding window and the
-// score softcap.
+// from a row offset, with a key-padding mask), the sliding window, the
+// score softcap, and the pair bias and segment ids of packed documents.
 //
 // Bound on the H100: at prefill shapes (512 query rows, head dim 128) the
 // work is ~4 * QL * KL * E flops against ~(QL + 2 * KL) * E * 2 bytes per
@@ -18,7 +18,8 @@
 // the diagonal or wholly before the window are never loaded: a windowed
 // row reads about window + 64 keys, whatever the key length. It is the
 // simple form (mma.sync, synchronous tile loads); wgmma, TMA and a
-// pipelined ring are later work.
+// pipelined ring are later work. Segment ids mask scores but skip no key
+// tile yet (a tile wholly outside the row's document is still loaded).
 //
 // Grid: (cdiv(QL, 64), QH, B); 4 warps, each owning 16 query rows.
 // GQA: the block of query head h reads KV head h / (QH / KH).
@@ -31,12 +32,20 @@
 // same kernel on dynamic shared memory ran slower at head dim 128. The
 // softcap and the window are template flags, so a call without them runs
 // no per-score test for them (a runtime window test slowed the plain
-// causal path).
+// causal path). So is kExtra, the "extra score terms": the pair bias
+// and the segment ids, each pointer nullable inside it (one flag, not
+// two, keeps the instantiations at 18). A bf16 pair with an even KL is
+// read two columns a load, for the whole key tile before its QK^T product
+// (the loads overlap the product); an f32 pair, or an odd KL, one visible
+// score at a time. The key tile's segment ids are staged in shared memory
+// with K and V.
 // Scores: s = scale * q.k, then with a softcap c, s = c * tanh(s / c),
-// BEFORE any mask (nnop_tpu/ops/flash_attention.py:119-122).
+// then + pair[b, h, i, j] in f32 (the softcap and the pair never meet),
+// BEFORE any mask (nnop_tpu/ops/flash_attention.py:119-124).
 // Masking: key j is visible to query row i (at position pos = i + offset)
-// when j < KL, kpad[b, j] (if given) and, if causal, j <= pos and, with a
-// window w, pos - j < w. Masked scores take kMaskValue and their
+// when j < KL, kpad[b, j] (if given), q_seg[b, i] == kv_seg[b, j] (if
+// given) and, if causal, j <= pos and, with a window w, pos - j < w.
+// Masked scores take kMaskValue and their
 // probabilities are exact zeros; a row with no visible key writes zeros
 // (l == 0 is guarded), never NaN.
 
@@ -61,12 +70,14 @@ struct alignas(16) FwdTiles {
   __nv_bfloat16 buf[((S::kQSmem ? kBQ : 0) + 2 * S::kBK) * S::kRow];
 };
 
-// kSoftcap / kWindow: compiled in only where asked for; inv_cap = 1 /
-// softcap comes from the host.
-template <int E, bool kSoftcap, bool kWindow>
+// kSoftcap / kWindow / kExtra: compiled in only where asked for; inv_cap
+// = 1 / softcap comes from the host.
+template <int E, bool kSoftcap, bool kWindow, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kpad,
+                 const void* __restrict__ pair, const int* __restrict__ qseg,
+                 const int* __restrict__ kseg, int pair_f32,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int QH, int KH,
                  int QL, int KL, float scale, int causal, int offset, int window,
                  float softcap, float inv_cap) {
@@ -81,6 +92,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __nv_bfloat16* k_s = nnop::block_smem<FwdTiles<E>>().buf;
   __nv_bfloat16* v_s = k_s + kBK * kRow;
   __nv_bfloat16* q_s = v_s + kBK * kRow;  // used only when kQSmem
+  __shared__ int kseg_s[kExtra ? kBK : 1];  // the key tile's segment ids (kExtra)
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (QH / KH);
@@ -93,6 +105,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* kb = k + (size_t)(b * KH + kh) * KL * E;
   const __nv_bfloat16* vb = v + (size_t)(b * KH + kh) * KL * E;
   const uint8_t* kp = kpad ? kpad + (size_t)b * KL : nullptr;
+  // kExtra: this head's pair rows, the keys' segment ids (staged per key
+  // tile in kseg_s) and the two rows' own
+  const size_t pair_off = (size_t)(b * QH + h) * QL * KL;
+  const bool pair_vec = kExtra && pair != nullptr && !pair_f32 && KL % 2 == 0;
+  const int* ks = kExtra && kseg != nullptr ? kseg + (size_t)b * KL : nullptr;
+  int qs_lo = 0, qs_hi = 0;
+  if constexpr (kExtra) {
+    if (ks != nullptr) {
+      if (r_lo < QL) qs_lo = qseg[(size_t)b * QL + r_lo];
+      if (r_hi < QL) qs_hi = qseg[(size_t)b * QL + r_hi];
+    }
+  }
 
   // Q fragments: in registers for the whole loop (E <= 128), or the block's
   // 64 Q rows in shared memory (E = 256). Rows past QL are 0.
@@ -121,7 +145,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   auto visible = [&](int row, int col) -> bool {
     const int pos = row + offset;
     return col < KL && (kp == nullptr || kp[col] != 0) &&
-           (!causal || (col <= pos && (!kWindow || pos - col < window)));
+           (!causal || (col <= pos && (!kWindow || pos - col < window))) &&
+           (!kExtra || ks == nullptr || kseg_s[col % kBK] == (row == r_lo ? qs_lo : qs_hi));
   };
 
   int n_tiles = (KL + kBK - 1) / kBK, j_first = 0;
@@ -150,7 +175,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       *reinterpret_cast<uint4*>(k_s + r * kRow + cv) = kv;
       *reinterpret_cast<uint4*>(v_s + r * kRow + cv) = vv;
     }
+    if constexpr (kExtra) {
+      if (ks != nullptr && threadIdx.x < kBK)
+        kseg_s[threadIdx.x] = c0 + threadIdx.x < KL ? ks[c0 + threadIdx.x] : 0;
+    }
     __syncthreads();
+
+    // kExtra, a bf16 pair and an even KL: the tile's pair values for this
+    // thread's two rows, two adjacent columns per register
+    uint32_t pv[kExtra ? kSTiles : 1][2];
+    if constexpr (kExtra) {
+      if (pair_vec) {
+        const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(pair) + pair_off;
+#pragma unroll
+        for (int n = 0; n < kSTiles; ++n) {
+          const int col = c0 + n * 8 + 2 * t;  // even, so col + 1 < KL too
+          pv[n][0] = r_lo < QL && col < KL
+                         ? *reinterpret_cast<const uint32_t*>(pb + (size_t)r_lo * KL + col) : 0u;
+          pv[n][1] = r_hi < QL && col < KL
+                         ? *reinterpret_cast<const uint32_t*>(pb + (size_t)r_hi * KL + col) : 0u;
+        }
+      }
+    }
 
     // S = Q K^T for this warp's 16 rows x kBK keys
     float s[kSTiles][4];
@@ -180,8 +226,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
 
     // scale, softcap, mask; online softmax: row max over the quad of lanes
-    // sharing a row
+    // sharing a row. With kExtra each score's visibility is taken once,
+    // into a bit of vbits, which the exp pass reads back.
     float mx_lo = nnop::kMaskValue, mx_hi = nnop::kMaskValue;
+    uint32_t vbits = 0;
 #pragma unroll
     for (int n = 0; n < kSTiles; ++n) {
 #pragma unroll
@@ -189,7 +237,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         const int col = c0 + n * 8 + 2 * t + (e & 1);
         float val = s[n][e] * scale;
         if constexpr (kSoftcap) val = softcap * tanhf(val * inv_cap);
-        val = visible(e < 2 ? r_lo : r_hi, col) ? val : nnop::kMaskValue;
+        if constexpr (kExtra) {
+          const int row = e < 2 ? r_lo : r_hi;
+          const bool vis = visible(row, col);
+          if (vis) {
+            vbits |= 1u << (n * 4 + e);
+            if (pair_vec)
+              val += nnop::bf16x2_half(pv[n][e >> 1], e & 1);
+            else if (pair != nullptr && row < QL)
+              val += nnop::load_bf16_or_f32(pair, pair_f32, pair_off + (size_t)row * KL + col);
+          }
+          val = vis ? val : nnop::kMaskValue;
+        } else {
+          val = visible(e < 2 ? r_lo : r_hi, col) ? val : nnop::kMaskValue;
+        }
         s[n][e] = val;
         if (e < 2) mx_lo = fmaxf(mx_lo, val); else mx_hi = fmaxf(mx_hi, val);
       }
@@ -208,8 +269,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       for (int e = 0; e < 4; ++e) {
         const int col = c0 + n * 8 + 2 * t + (e & 1);
         const bool lo = e < 2;
-        const float p =
-            visible(lo ? r_lo : r_hi, col) ? __expf(s[n][e] - (lo ? mn_lo : mn_hi)) : 0.f;
+        bool vis;
+        if constexpr (kExtra)
+          vis = (vbits >> (n * 4 + e)) & 1u;
+        else
+          vis = visible(lo ? r_lo : r_hi, col);
+        const float p = vis ? __expf(s[n][e] - (lo ? mn_lo : mn_hi)) : 0.f;
         s[n][e] = p;
         if (lo) sum_lo += p; else sum_hi += p;
       }
@@ -270,53 +335,65 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int E, bool kSoftcap, bool kWindow>
+template <int E, bool kSoftcap, bool kWindow, bool kExtra>
 cudaError_t launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
                        const __nv_bfloat16* k, const __nv_bfloat16* v, const uint8_t* kpad,
+                       const void* pair, const int* qseg, const int* kseg, int pair_f32,
                        __nv_bfloat16* o, float* lse, int QH, int KH, int QL, int KL,
                        float scale, int causal, int offset, int window, float softcap) {
   constexpr int kDynamic = nnop::dynamic_smem_bytes<FwdTiles<E>>;
-  static const cudaError_t opt_in =
-      nnop::opt_in_dynamic_smem<FwdTiles<E>>(flash_fwd_kernel<E, kSoftcap, kWindow>);
+  static const cudaError_t opt_in = nnop::opt_in_dynamic_smem<FwdTiles<E>>(
+      flash_fwd_kernel<E, kSoftcap, kWindow, kExtra>);
   if (opt_in != cudaSuccess) return opt_in;
-  flash_fwd_kernel<E, kSoftcap, kWindow><<<grid, kThreads, kDynamic, st>>>(
-      q, k, v, kpad, o, lse, QH, KH, QL, KL, scale, causal, offset, window, softcap,
-      kSoftcap ? 1.f / softcap : 0.f);
+  flash_fwd_kernel<E, kSoftcap, kWindow, kExtra><<<grid, kThreads, kDynamic, st>>>(
+      q, k, v, kpad, pair, qseg, kseg, pair_f32, o, lse, QH, KH, QL, KL, scale, causal,
+      offset, window, softcap, kSoftcap ? 1.f / softcap : 0.f);
   return cudaGetLastError();
 }
 
-// The instantiation for the features asked for (softcap > 0, window > 0).
+// The instantiation for the features asked for (softcap > 0, window > 0,
+// extra: a pair bias or segment ids, never with the softcap).
 template <int E, typename... Args>
-cudaError_t launch(float softcap, int window, Args... args) {
+cudaError_t launch(float softcap, int window, bool extra, Args... args) {
+  if (extra) {
+    if (softcap > 0.f) return cudaErrorInvalidValue;
+    return window > 0 ? launch_one<E, false, true, true>(args..., window, softcap)
+                      : launch_one<E, false, false, true>(args..., window, softcap);
+  }
   if (softcap > 0.f)
-    return window > 0 ? launch_one<E, true, true>(args..., window, softcap)
-                      : launch_one<E, true, false>(args..., window, softcap);
-  return window > 0 ? launch_one<E, false, true>(args..., window, softcap)
-                    : launch_one<E, false, false>(args..., window, softcap);
+    return window > 0 ? launch_one<E, true, true, false>(args..., window, softcap)
+                      : launch_one<E, true, false, false>(args..., window, softcap);
+  return window > 0 ? launch_one<E, false, true, false>(args..., window, softcap)
+                    : launch_one<E, false, false, false>(args..., window, softcap);
 }
 
 }  // namespace
 
 // q (B, QH, QL, E), k/v (B, KH, KL, E), o (B, QH, QL, E): bf16, contiguous.
-// kpad (B, KL) uint8 or null; lse (B, QH, QL) f32. E is 64, 128 or 256.
-// window > 0 (with causal) keeps the last `window` positions; softcap > 0
-// caps the scores; 0 turns either off.
+// kpad (B, KL) uint8 or null; pair (B, QH, QL, KL) f32 (pair_f32) or bf16,
+// or null; q_seg (B, QL) and kv_seg (B, KL) int32, both or neither; lse
+// (B, QH, QL) f32. E is 64, 128 or 256. window > 0 (with causal) keeps the
+// last `window` positions; softcap > 0 caps the scores; 0 turns either
+// off. The softcap takes no pair and no segment ids.
 extern "C" int nnop_flash_fwd(const void* q, const void* k, const void* v, const void* kpad,
-                              void* o, void* lse, int B, int QH, int KH, int QL, int KL, int E,
-                              float scale, int causal, int offset, int window, float softcap,
-                              void* stream) {
+                              const void* pair, const void* q_seg, const void* kv_seg, void* o,
+                              void* lse, int B, int QH, int KH, int QL, int KL, int E,
+                              int pair_f32, float scale, int causal, int offset, int window,
+                              float softcap, void* stream) {
   const dim3 grid((QL + kBQ - 1) / kBQ, QH, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool extra = pair != nullptr || q_seg != nullptr;
 #define NNOP_FWD_ARGS                                                                      \
   grid, st, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),    \
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kpad),             \
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kpad), pair,       \
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), pair_f32,            \
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), QH, KH, QL, KL, scale,      \
       causal, offset
   cudaError_t e;
   switch (E) {
-    case 64: e = launch<64>(softcap, window, NNOP_FWD_ARGS); break;
-    case 128: e = launch<128>(softcap, window, NNOP_FWD_ARGS); break;
-    case 256: e = launch<256>(softcap, window, NNOP_FWD_ARGS); break;
+    case 64: e = launch<64>(softcap, window, extra, NNOP_FWD_ARGS); break;
+    case 128: e = launch<128>(softcap, window, extra, NNOP_FWD_ARGS); break;
+    case 256: e = launch<256>(softcap, window, extra, NNOP_FWD_ARGS); break;
     default: e = cudaErrorInvalidValue;
   }
 #undef NNOP_FWD_ARGS

@@ -4,34 +4,44 @@
 nnop_tpu/ops/flash_attention.py:_fwd_impl and the TPU dispatch zoo under
 it (the rect, causal-strip, rect-static, window and chunked kernels): one
 FA-2 kernel serves causal bucketed prefill and chunked prefill (causal
-from a row offset with a key-padding mask), with the sliding window and
-the score softcap. See the kernel source for what bounds it and how. The
-launches with a window and with a softcap are counted apart
-(`flash_fwd.window_launches`, `.softcap_launches`) beside `launches`, and
-`flash_fwd.mode_launches` counts them by (head dim, window, softcap).
+from a row offset with a key-padding mask), with the sliding window, the
+score softcap, and the pair bias and segment ids (packed documents). See
+the kernel source for what bounds it and how. The launches with a window
+and with a softcap are counted apart (`flash_fwd.window_launches`,
+`.softcap_launches`) beside `launches`, `flash_fwd.mode_launches` counts
+them by (head dim, window, softcap), and `.pair_launches` and
+`.segment_launches` count the launches with a pair and with segment ids.
 
 Layouts are the JAX package's: q (B, QH, QL, E), k/v (B, KH, KL, E),
-kpad_mask (B, KL) with True = valid. GQA: query head h reads KV head
-h // (QH // KH). The kernel takes bf16 and head dim 64, 128 or 256; pair
-bias and segment ids are served only by the plain version (a CPU tensor)
-and raise NotImplementedError on CUDA.
+kpad_mask (B, KL) with True = valid, pair (B, QH, QL, KL) (bf16 or f32
+on the card), segment_ids ((B, QL), (B, KL)) ints. GQA: query head h
+reads KV head h // (QH // KH). The kernel takes bf16 and head dim 64, 128
+or 256; `flash_attention` zero-pads any other head dim up to the next of
+them on the card (the JAX op's padding, nnop_tpu/ops/flash_attention.py
+:1471-1483). The softcap takes no pair (as in JAX), and on the card no
+segment ids either.
 
 `flash_attention` is differentiable through a `torch.autograd.Function`
 (the JAX custom VJP, nnop_tpu/ops/flash_attention.py:1350-1379): its
-forward is kernel C, which saves q, k, v, o, lse and kpad_mask, and its
-backward the dQ and dK/dV kernels (ops/flash_attention_bwd.py). Pair,
-segment ids, the window and softcap have no backward yet: with them, a
-call that needs gradients raises NotImplementedError on any device.
+forward is kernel C, which saves q, k, v, o, lse, the pair, kpad_mask and
+the segment ids, and its backward the dQ and dK/dV kernels
+(ops/flash_attention_bwd.py), which return dpair as the pair's gradient.
+The window and the softcap have no backward yet: with them, a call that
+needs gradients raises NotImplementedError on any device.
 `flash_attention_chunked` stays forward-only, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from nnop_tpu_torch.ops.naive import naive_attention
 from nnop_tpu_torch.utils.build import check_launch, load_library
 from nnop_tpu_torch.utils.platform import check_cuda_operand
+
+_PAIR_DTYPES = (torch.bfloat16, torch.float32)
+
 
 def _validate(q, k, v, pair, kpad_mask):
     """Shape-contract errors (nnop_tpu/ops/flash_attention.py:_validate)."""
@@ -53,6 +63,41 @@ def _validate(q, k, v, pair, kpad_mask):
             raise ValueError(f"kpad_mask shape {tuple(kpad_mask.shape)}, expected {expect}")
 
 
+def kernel_head_dim(E: int, grad: bool) -> int:
+    """The head dim the kernels run E at on the card: the next of 64 and
+    128, and 256 without grad (the backward kernels stop at 128). Raises
+    ValueError past the largest."""
+    dims = (64, 128) if grad else (64, 128, 256)
+    for d in dims:
+        if E <= d:
+            return d
+    raise ValueError(f"head dim {E} > {dims[-1]}, the largest the kernels take"
+                     + (" with gradients" if grad else ""))
+
+
+def pad_head_dim(fn, q, k, v, Ep: int):
+    """fn(q, k, v) on q, k, v zero-padded to head dim Ep, the output sliced
+    back to the true head dim: the zero lanes add 0 to every score and
+    give zero output lanes (nnop_tpu/ops/flash_attention.py:1471-1483).
+    The caller's scale must come from the true head dim; gradients flow
+    through the pad and the slice."""
+    E = q.shape[-1]
+    q, k, v = (F.pad(t, (0, Ep - E)) for t in (q, k, v))
+    return fn(q, k, v)[..., :E]
+
+
+def _segments(segment_ids, q, k):
+    """Segment ids as the kernels take them: int32, contiguous, on q's
+    device, of shapes (B, QL) and (B, KL)."""
+    q_seg, kv_seg = (t.to(device=q.device, dtype=torch.int32).contiguous()
+                     for t in segment_ids)
+    for name, t, n in (("q", q_seg, q.shape[2]), ("kv", kv_seg, k.shape[2])):
+        if tuple(t.shape) != (q.shape[0], n):
+            raise ValueError(f"{name} segment ids shape {tuple(t.shape)}, expected "
+                             f"{(q.shape[0], n)}")
+    return q_seg, kv_seg
+
+
 @torch.no_grad()
 def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
               kpad_mask=None, pair=None, segment_ids=None,
@@ -66,9 +111,6 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
             kpad_mask=kpad_mask, segment_ids=segment_ids, scale=scale,
             window=window, softcap=softcap, return_lse=True,
         )
-    for name, val in (("pair", pair), ("segment_ids", segment_ids)):
-        if val is not None:
-            raise NotImplementedError(f"flash_fwd: {name} is not ported to the CUDA kernel yet")
     B, QH, QL, E = q.shape
     KH, KL = k.shape[1], k.shape[2]
     if E not in (64, 128, 256):
@@ -79,26 +121,41 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
         raise ValueError(f"window {window} needs causal=True and window >= 1")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    if softcap is not None and pair is not None:
+        raise ValueError("softcap is incompatible with pair bias")
+    if softcap is not None and segment_ids is not None:
+        raise NotImplementedError("flash_fwd: segment ids with the softcap are not on the kernel")
     check_cuda_operand("q", q, (torch.bfloat16,))
     check_cuda_operand("k", k, (torch.bfloat16,), device=q.device)
     check_cuda_operand("v", v, (torch.bfloat16,), device=q.device)
     if kpad_mask is not None:
         check_cuda_operand("kpad_mask", kpad_mask, (torch.bool,), device=q.device)
+    if pair is not None:
+        check_cuda_operand("pair", pair, _PAIR_DTYPES, device=q.device)
+        if tuple(pair.shape) != (B, QH, QL, KL):
+            raise ValueError(f"pair shape {tuple(pair.shape)}, expected {(B, QH, QL, KL)}")
+    q_seg, kv_seg = _segments(segment_ids, q, k) if segment_ids is not None else (None, None)
     o = torch.empty_like(q)
     lse = torch.empty((B, QH, QL), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     err = load_library().nnop_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kpad_mask.data_ptr() if kpad_mask is not None else None,
-        o.data_ptr(), lse.data_ptr(), B, QH, KH, QL, KL, E, float(scale),
-        int(causal), int(causal_offset), int(window or 0), float(softcap or 0.0),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(kpad_mask), ptr(pair), ptr(q_seg),
+        ptr(kv_seg), o.data_ptr(), lse.data_ptr(), B, QH, KH, QL, KL, E,
+        int(pair is not None and pair.dtype == torch.float32), float(scale), int(causal),
+        int(causal_offset), int(window or 0), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.window_launches += window is not None
     flash_fwd.softcap_launches += softcap is not None
+    flash_fwd.pair_launches += pair is not None
+    flash_fwd.segment_launches += segment_ids is not None
     mode = (E, window is not None, softcap is not None)
     flash_fwd.mode_launches[mode] = flash_fwd.mode_launches.get(mode, 0) + 1
     return o, lse
@@ -107,14 +164,18 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
 flash_fwd.launches = 0
 flash_fwd.window_launches = 0
 flash_fwd.softcap_launches = 0
+flash_fwd.pair_launches = 0
+flash_fwd.segment_launches = 0
 flash_fwd.mode_launches = {}
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kpad_mask, causal, scale):
-        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask)
-        ctx.save_for_backward(q, k, v, o, lse, kpad_mask)
+    def forward(ctx, q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale):
+        segment_ids = (q_seg, kv_seg) if q_seg is not None else None
+        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask,
+                           pair=pair, segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, pair, kpad_mask, q_seg, kv_seg)
         ctx.causal, ctx.scale = causal, scale
         return o
 
@@ -122,16 +183,21 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         from nnop_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd
 
-        q, k, v, o, lse, kpad_mask = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-                                         scale=ctx.scale, kpad_mask=kpad_mask)
-        return dq, dk, dv, None, None, None
+        q, k, v, o, lse, pair, kpad_mask, q_seg, kv_seg = ctx.saved_tensors
+        want_dpair = pair is not None and ctx.needs_input_grad[3]
+        grads = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale,
+            kpad_mask=kpad_mask, pair=pair,
+            segment_ids=(q_seg, kv_seg) if q_seg is not None else None, want_dpair=want_dpair)
+        dpair = grads[3] if want_dpair else None
+        return (*grads[:3], dpair, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
                     segment_ids=None, scale: float | None = None,
                     window: int | None = None, softcap: float | None = None):
-    """Multi-head attention with online softmax, differentiable in q, k, v.
+    """Multi-head attention with online softmax, differentiable in q, k, v
+    and the pair.
 
     q: (B, QH, QL, E); k, v: (B, KH, KL, E) with QH % KH == 0 (GQA/MQA).
     pair: optional additive bias (B, QH, QL, KL). causal: mask by absolute
@@ -155,15 +221,25 @@ def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
         if softcap <= 0:
             raise ValueError(f"softcap must be > 0, got {softcap}")
         softcap = float(softcap)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    features = (pair, segment_ids, window, softcap)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if any(f is not None for f in features):
-            raise NotImplementedError(
-                "flash_attention: no backward for pair, segment_ids, window or softcap yet")
-        return _FlashAttention.apply(q, k, v, kpad_mask, causal, float(scale))
-    o, _ = flash_fwd(q, k, v, causal=causal, scale=float(scale), kpad_mask=kpad_mask,
+    E = q.shape[-1]
+    scale = float(1.0 / (E ** 0.5) if scale is None else scale)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, pair))
+    if grad and (window is not None or softcap is not None):
+        raise NotImplementedError("flash_attention: no backward for the window or the "
+                                  "softcap yet")
+    if q.device.type == "cuda":
+        Ep = kernel_head_dim(E, grad)
+        if Ep != E:
+            return pad_head_dim(lambda q, k, v: flash_attention(
+                q, k, v, pair, causal=causal, kpad_mask=kpad_mask, segment_ids=segment_ids,
+                scale=scale, window=window, softcap=softcap), q, k, v, Ep)
+        if pair is not None:
+            pair = pair.contiguous()
+    if grad:
+        q_seg, kv_seg = segment_ids if segment_ids is not None else (None, None)
+        return _FlashAttention.apply(q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale)
+    o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask,
                      pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
     return o
 

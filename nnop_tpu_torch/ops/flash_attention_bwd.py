@@ -5,22 +5,28 @@ Counterpart of nnop_tpu/ops/flash_attention_bwd.py:flash_attention_bwd
 `flash_bwd_dkv` wrap the two entries of csrc/flash_bwd.cu (see the
 source for what bounds them and how); `flash_attention_bwd` runs both,
 dQ first because it also writes delta = rowsum(do * o), which the dK/dV
-kernel reads (the JAX package computes delta outside Pallas, :1067-1071).
-Both kernels are deterministic: no atomics, a fixed summation order.
+kernel reads (the JAX package computes delta outside Pallas, :1067-1071),
+and dpair, the pair bias's gradient. Both kernels are deterministic: no
+atomics, a fixed summation order.
 
 Layouts are the JAX package's: q, o, do (B, QH, QL, E), k, v (B, KH, KL,
 E), lse (B, QH, QL) f32 from the forward (ops/flash_attention.py:flash_fwd),
-kpad_mask (B, KL) bool, True = valid. The kernels cover what kernel C
-covers on the training path: causal (from row 0) or not, GQA, kpad, any
-lengths, bf16 with head dim 64 or 128. A CPU tensor takes the plain
-version (ops/naive.py:naive_attention_bwd); the two kernel launchers take
-CUDA tensors only.
+kpad_mask (B, KL) bool, True = valid, pair (B, QH, QL, KL) bf16 or f32,
+segment_ids ((B, QL), (B, KL)) ints. The kernels cover what kernel C
+covers on the training path except the window and the softcap: causal
+(from row 0) or not, GQA, kpad, the pair bias and segment ids, any
+lengths, bf16 with head dim 64 or 128. Each kernel counts its launches
+with a pair and with segment ids apart (`pair_launches`,
+`segment_launches`) beside `launches`. A CPU tensor takes the plain
+version (ops/naive.py:naive_attention_bwd); the two kernel launchers
+take CUDA tensors only.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nnop_tpu_torch.ops.flash_attention import _PAIR_DTYPES, _segments
 from nnop_tpu_torch.ops.naive import naive_attention_bwd
 from nnop_tpu_torch.utils.build import check_launch, load_library
 from nnop_tpu_torch.utils.platform import check_cuda_operand
@@ -28,7 +34,8 @@ from nnop_tpu_torch.utils.platform import check_cuda_operand
 _BF16 = (torch.bfloat16,)
 
 
-def _check(q, k, v, lse, do, kpad_mask, o=None):
+def _check(q, k, v, lse, do, kpad_mask, pair, segment_ids, o=None):
+    """Validate the operands -> (B, QH, KH, QL, KL, E, q_seg, kv_seg)."""
     B, QH, QL, E = q.shape
     KH, KL = k.shape[1], k.shape[2]
     if E not in (64, 128):
@@ -47,36 +54,62 @@ def _check(q, k, v, lse, do, kpad_mask, o=None):
         check_cuda_operand("kpad_mask", kpad_mask, (torch.bool,), device=q.device)
         if kpad_mask.shape != (B, KL):
             raise ValueError(f"kpad_mask shape {tuple(kpad_mask.shape)}, expected {(B, KL)}")
-    return B, QH, KH, QL, KL, E
+    if pair is not None:
+        check_cuda_operand("pair", pair, _PAIR_DTYPES, device=q.device)
+        if pair.shape != (B, QH, QL, KL):
+            raise ValueError(f"pair shape {tuple(pair.shape)}, expected {(B, QH, QL, KL)}")
+    segs = _segments(segment_ids, q, k) if segment_ids is not None else (None, None)
+    return B, QH, KH, QL, KL, E, *segs
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None):
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _count(fn, pair, segment_ids):
+    fn.launches += 1
+    fn.pair_launches += pair is not None
+    fn.segment_launches += segment_ids is not None
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None,
+                 pair=None, segment_ids=None, want_dpair: bool = True):
     """The dQ kernel (CUDA tensors) -> (dq (B, QH, QL, E) in q.dtype,
-    delta (B, QH, QL) f32 = rowsum(do * o), for flash_bwd_dkv)."""
-    B, QH, KH, QL, KL, E = _check(q, k, v, lse, do, kpad_mask, o)
+    delta (B, QH, QL) f32 = rowsum(do * o), for flash_bwd_dkv), and with a
+    pair (unless want_dpair is False) dpair (B, QH, QL, KL) in its dtype,
+    every element written by the kernel."""
+    B, QH, KH, QL, KL, E, q_seg, kv_seg = _check(q, k, v, lse, do, kpad_mask, pair,
+                                                 segment_ids, o)
     dq = torch.empty_like(q)
     delta = torch.empty((B, QH, QL), dtype=torch.float32, device=q.device)
+    dpair = torch.empty_like(pair) if pair is not None and want_dpair else None
+    out = (dq, delta) + ((dpair,) if dpair is not None else ())
     if dq.numel() == 0:
-        return dq, delta
+        return out
     err = load_library().nnop_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        kpad_mask.data_ptr() if kpad_mask is not None else None, dq.data_ptr(),
-        delta.data_ptr(), B, QH, KH, QL, KL, E, float(scale), int(causal),
+        _ptr(kpad_mask), _ptr(pair), _ptr(q_seg), _ptr(kv_seg), dq.data_ptr(), _ptr(dpair),
+        delta.data_ptr(), B, QH, KH, QL, KL, E,
+        int(pair is not None and pair.dtype == torch.float32), float(scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("flash_bwd_dq", err)
-    flash_bwd_dq.launches += 1
-    return dq, delta
+    _count(flash_bwd_dq, pair, segment_ids)
+    return out
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.pair_launches = 0
+flash_bwd_dq.segment_launches = 0
 
 
-def flash_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool, scale: float, kpad_mask=None):
+def flash_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool, scale: float, kpad_mask=None,
+                  pair=None, segment_ids=None):
     """The dK/dV kernel (CUDA tensors) -> (dk, dv) (B, KH, KL, E) in k/v
     dtypes, summed over each KV head's group of query heads; delta from
     flash_bwd_dq."""
-    B, QH, KH, QL, KL, E = _check(q, k, v, lse, do, kpad_mask)
+    B, QH, KH, QL, KL, E, q_seg, kv_seg = _check(q, k, v, lse, do, kpad_mask, pair,
+                                                 segment_ids)
     check_cuda_operand("delta", delta, (torch.float32,), device=q.device)
     if delta.shape != lse.shape:
         raise ValueError(f"delta shape {tuple(delta.shape)} != lse shape {tuple(lse.shape)}")
@@ -87,27 +120,32 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool, scale: float, kpad_m
         return dk.zero_(), dv.zero_()
     err = load_library().nnop_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), kpad_mask.data_ptr() if kpad_mask is not None else None,
-        dk.data_ptr(), dv.data_ptr(), B, QH, KH, QL, KL, E, float(scale), int(causal),
+        delta.data_ptr(), _ptr(kpad_mask), _ptr(pair), _ptr(q_seg), _ptr(kv_seg),
+        dk.data_ptr(), dv.data_ptr(), B, QH, KH, QL, KL, E,
+        int(pair is not None and pair.dtype == torch.float32), float(scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("flash_bwd_dkv", err)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, pair, segment_ids)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.pair_launches = 0
+flash_bwd_dkv.segment_launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None):
-    """Gradients of flash_attention -> (dq, dk, dv), from the forward's o
-    and lse and the output gradient do: the plain version for a CPU
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None,
+                        pair=None, segment_ids=None, want_dpair: bool = True):
+    """Gradients of flash_attention -> (dq, dk, dv), and dpair after them
+    when a pair is given (unless want_dpair is False), from the forward's
+    o and lse and the output gradient do: the plain version for a CPU
     tensor, the dQ then the dK/dV kernel for a CUDA tensor."""
+    kw = dict(causal=causal, scale=scale, kpad_mask=kpad_mask, pair=pair,
+              segment_ids=segment_ids)
     if q.device.type == "cpu":
-        return naive_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale,
-                                   kpad_mask=kpad_mask)
-    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal=causal, scale=scale,
-                             kpad_mask=kpad_mask)
-    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal=causal, scale=scale,
-                           kpad_mask=kpad_mask)
-    return dq, dk, dv
+        grads = naive_attention_bwd(q, k, v, o, lse, do, **kw)
+        return grads if want_dpair else grads[:3]
+    dq, delta, *dpair = flash_bwd_dq(q, k, v, o, lse, do, want_dpair=want_dpair, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    return (dq, dk, dv, *dpair)

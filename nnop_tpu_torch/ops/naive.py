@@ -54,6 +54,50 @@ def naive_rms_norm_bwd(x, w, rstd, dy, offset: float = 0.0):
     return (rstd * (gdy - xhat * c)).to(x.dtype), (dyf * xhat).sum(dim=0)
 
 
+def naive_softmax(x):
+    """Softmax over the last axis in f32, output in x.dtype, with the TPU
+    kernel's guard (nnop_tpu/ops/softmax.py:45-47): a row maximum that is
+    NaN or -inf becomes 0 (so a row of -inf gives 0 / 0 = NaN there)."""
+    xf = x.float()
+    m = xf.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isnan(m) | (m == float("-inf")), torch.zeros_like(m), m)
+    e = torch.exp(xf - m)
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def naive_softmax_bwd(y, dy):
+    """The softmax backward from its output, f32 math:
+    dx = (dy - sum(dy * y)) * y, in y.dtype."""
+    yf, dyf = y.float(), dy.float()
+    return ((dyf - (dyf * yf).sum(dim=-1, keepdim=True)) * yf).to(y.dtype)
+
+
+def naive_layer_norm_fwd(x, w, b, *, eps: float = 1e-6):
+    """Layer norm over the last axis, f32 math (nnop_tpu/ops/layer_norm.py
+    :36-47). Returns (y in x.dtype, mu (..., 1) f32, sigma (..., 1) f32),
+    sigma = rsqrt(var + eps) with var the mean of (x - mu)^2."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    sigma = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    return (xc * sigma * w.float() + b.float()).to(x.dtype), mu, sigma
+
+
+def naive_layer_norm_bwd(x, w, mu, sigma, dy):
+    """The layer-norm backward (nnop_tpu/ops/layer_norm.py:11-15), f32
+    throughout: x, dy (n, e), mu and sigma (n, 1) from the forward. With
+    x_hat = (x - mu) * sigma:
+      dx = sigma * (w dy - mean(w dy) - x_hat * mean(w dy x_hat))  (x.dtype)
+      dw = sum over rows of dy * x_hat,  db = sum over rows of dy  (f32)"""
+    xhat = (x.float() - mu) * sigma
+    dyf = dy.float()
+    wdy = w.float() * dyf
+    c1 = (wdy * xhat).mean(dim=-1, keepdim=True)
+    c2 = wdy.mean(dim=-1, keepdim=True)
+    dx = sigma * (wdy - c2 - xhat * c1)
+    return dx.to(x.dtype), (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
+
+
 def rotate_half(x):
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
@@ -139,19 +183,21 @@ def naive_attention(
     return o.to(q.dtype)
 
 
-def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None):
+def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None,
+                        pair=None, segment_ids=None):
     """The attention backward as explicit formulas
     (nnop_tpu/ops/flash_attention_bwd.py:40-130 and :1067-1071), from the
     forward's o and lse (B, QH, QL) in nats; layouts as naive_attention,
-    causal from row 0. With s = scale * q k^T recomputed under the
-    forward's mask:
+    causal from row 0. With s = scale * q k^T (+ pair) recomputed under
+    the forward's mask (causal, kpad, q_seg[i] == kv_seg[j]):
       delta = sum_e do * o;  P = exp(s - lse);  dP = do v^T
       dS = P * (dP - delta);  dq = scale * dS k;  dk = scale * dS^T q
-      dv = P^T do
+      dv = P^T do;  dpair = dS (before the scale, :218-220)
     masked entries of P and dS exact zeros (a row with no visible key
     gets zero gradients); P and dS rounded to the operand dtype before
     their products, as the kernels do; dk and dv summed over each KV
-    head's group of query heads. Returns (dq, dk, dv) in q/k/v dtypes."""
+    head's group of query heads. Returns (dq, dk, dv) in q/k/v dtypes,
+    and dpair in pair's dtype after them when pair is given."""
     B, QH, QL, E = q.shape
     _, KH, KL, _ = k.shape
     rep = QH // KH
@@ -159,12 +205,17 @@ def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad
     vf = v.float().repeat_interleave(rep, dim=1)
     qf, dof = q.float(), do.float()
     s = torch.einsum("bhqe,bhke->bhqk", qf, kf) * scale
+    if pair is not None:
+        s = s + pair.float()
     mask = torch.ones((1, 1, QL, KL), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (torch.arange(QL, device=q.device)[:, None]
                        >= torch.arange(KL, device=q.device)[None, :])
     if kpad_mask is not None:
         mask = mask & kpad_mask[:, None, None, :].bool()
+    if segment_ids is not None:
+        q_seg, kv_seg = segment_ids
+        mask = mask & (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     dp = torch.einsum("bhqe,bhke->bhqk", dof, vf)
@@ -177,7 +228,8 @@ def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad
     def group_sum(x):
         return x.reshape(B, KH, rep, KL, E).sum(dim=2)
 
-    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+    grads = (dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype))
+    return grads + ((ds.to(pair.dtype),) if pair is not None else ())
 
 
 def naive_decode_attention(

@@ -35,15 +35,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
-    # q, k, v, kpad, o, lse, B, QH, KH, QL, KL, E, scale, causal, offset,
-    # window, softcap, stream
-    "nnop_flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _I, _F, _P],
-    # q, k, v, o, dout, lse, kpad, dq, delta, B, QH, KH, QL, KL, E, scale,
-    # causal, stream
-    "nnop_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, dout, lse, delta, kpad, dk, dv, B, QH, KH, QL, KL, E, scale,
-    # causal, stream
-    "nnop_flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, kpad, pair, q_seg, kv_seg, o, lse, B, QH, KH, QL, KL, E,
+    # pair_f32, scale, causal, offset, window, softcap, stream
+    "nnop_flash_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _F, _P],
+    # q, k, v, o, dout, lse, kpad, pair, q_seg, kv_seg, dq, dpair, delta, B,
+    # QH, KH, QL, KL, E, pair_f32, scale, causal, stream
+    "nnop_flash_bwd_dq": [_P] * 13 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, kpad, pair, q_seg, kv_seg, dk, dv, B, QH,
+    # KH, QL, KL, E, pair_f32, scale, causal, stream
+    "nnop_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
     # page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers, layer,
     # W, staged_n, scale, window, softcap, q_is_f32, cache_is_int8, stream

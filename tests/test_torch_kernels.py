@@ -16,7 +16,12 @@ f32 output (G and kernel I's W8A8 mode) must be bit-exact. The
 training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV, the
 grouped product's dx through kernel I and its dw kernel) are held to the
 plain forward and backward formulas of ops/naive.py, and the attention
-backward and the grouped dw must give the same bits on two runs.
+backward and the grouped dw must give the same bits on two runs. The op
+set's row kernels (softmax and layer norm, forward and backward, in one
+block and in column chunks) are held per row to a relative error (1e-5
+in f32, 1e-2 in bf16; dw and db 1e-4), and attention with the pair bias
+and segment ids (C, dQ with dpair, dK/dV), and at head dims the kernels
+reach by padding (32, 96), to 1e-2 relative per 64-row tile.
 """
 
 import pytest
@@ -40,6 +45,7 @@ from nnop_tpu_torch.ops.grouped_matmul import (
     quantize4_experts,
 )
 from nnop_tpu_torch.ops.kv_write import flush_staging, flush_staging_paged, write_kv_token
+from nnop_tpu_torch.ops.layer_norm import layer_norm, layer_norm_bwd, layer_norm_fwd
 from nnop_tpu_torch.ops.quantization import quantize, quantize4
 from nnop_tpu_torch.ops.quantized_matmul import (
     quantize_act,
@@ -49,6 +55,7 @@ from nnop_tpu_torch.ops.quantized_matmul import (
 )
 from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope, llama_rope_bwd
+from nnop_tpu_torch.ops.softmax import online_softmax, softmax_bwd, softmax_fwd
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=0)
@@ -590,3 +597,176 @@ def test_decode_kernel_softcap_binds(gen, quantized, mode, case, window):
     torch.testing.assert_close(got, plain(*args, **kw), **TOL)
     uncapped = plain(*args, **dict(kw, softcap=None))
     assert (got.float() - uncapped.float()).abs().max().item() > TOL["atol"]
+
+
+# ---- the op set: softmax, layer norm, pair bias and segment ids ----------
+
+
+def _row_rel_err(got, want):
+    """The largest |got - want| / |want| (norms over a row's last axis) over
+    the rows: each row against its own scale (a softmax row of 4096
+    values near 2.4e-4 would pass any absolute 2e-2)."""
+    got, want = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def _rel_tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+# (rows, E, dtype): one block (E <= 16384) and column chunks (E > 16384;
+# the layer norm backward past 8192), ragged widths
+ROW_CASES = [(64, 4096, torch.float32), (33, 1000, torch.bfloat16), (3, 128256, torch.float32),
+             (5, 20000, torch.bfloat16), (7, 12000, torch.float32)]
+
+
+@pytest.mark.parametrize("case", ROW_CASES, ids=lambda c: f"{c[0]}x{c[1]}-{str(c[2])[6:]}")
+def test_softmax_kernels(gen, case):
+    rows, E, dtype = case
+    x = (torch.randn(rows, E, generator=gen, device="cuda") * 3).to(dtype)
+    dy = torch.randn(rows, E, generator=gen, device="cuda").to(dtype)
+    before = softmax_fwd.launches
+    y = softmax_fwd(x)
+    assert softmax_fwd.launches == before + 1 and y.dtype == dtype
+    assert _row_rel_err(y, naive.naive_softmax(x)) <= _rel_tol(dtype)
+    before = softmax_bwd.launches
+    dx = softmax_bwd(y, dy)
+    assert softmax_bwd.launches == before + 1
+    assert _row_rel_err(dx, naive.naive_softmax_bwd(y, dy)) <= _rel_tol(dtype)
+    # autograd through online_softmax runs the two kernels once each
+    xg = x.clone().requires_grad_(True)
+    fwd0, bwd0 = softmax_fwd.launches, softmax_bwd.launches
+    (g,) = torch.autograd.grad(online_softmax(xg), xg, dy)
+    assert (softmax_fwd.launches, softmax_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert torch.equal(g, dx)
+    # the guard: a row of -inf gives NaN (0 / 0), as the JAX kernel
+    x[1] = float("-inf")
+    y = softmax_fwd(x)
+    assert torch.isnan(y[1]).all() and torch.isfinite(y[torch.arange(rows) != 1]).all()
+
+
+@pytest.mark.parametrize("case", ROW_CASES, ids=lambda c: f"{c[0]}x{c[1]}-{str(c[2])[6:]}")
+def test_layer_norm_kernels(gen, case):
+    rows, E, dtype = case
+    x = (torch.randn(rows, E, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    w = (1 + 0.1 * torch.randn(E, generator=gen, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(E, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(rows, E, generator=gen, device="cuda").to(dtype)
+    y, mu, sigma = layer_norm_fwd(x, w, b, 1e-5)
+    y_ref, mu_ref, sigma_ref = naive.naive_layer_norm_fwd(x, w, b, eps=1e-5)
+    assert _row_rel_err(y, y_ref) <= _rel_tol(dtype)
+    torch.testing.assert_close(mu, mu_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(sigma, sigma_ref, atol=0, rtol=1e-5)
+    before = layer_norm_bwd.launches
+    dx, dw, db = layer_norm_bwd(x, w, mu, sigma, dy)
+    assert layer_norm_bwd.launches == before + 1 and dx.dtype == dtype
+    dx_ref, dw_ref, db_ref = naive.naive_layer_norm_bwd(x, w, mu, sigma, dy)
+    assert _row_rel_err(dx, dx_ref) <= _rel_tol(dtype)
+    for got, want in ((dw, dw_ref), (db, db_ref)):  # f32 sums over the rows
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4
+    # autograd through layer_norm: the forward with the stats, then the
+    # backward; without grad the forward without them
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    fwd0, st0, bwd0 = layer_norm_fwd.launches, layer_norm_fwd.stats_launches, \
+        layer_norm_bwd.launches
+    grads = torch.autograd.grad(layer_norm(*leaves, 1e-5), leaves, dy)
+    assert (layer_norm_fwd.launches, layer_norm_fwd.stats_launches,
+            layer_norm_bwd.launches) == (fwd0 + 1, st0 + 1, bwd0 + 1)
+    assert torch.equal(grads[0], dx) and grads[1].dtype == dtype
+    with torch.no_grad():  # (compiled apart: not always the same bits)
+        assert _row_rel_err(layer_norm(x, w, b, 1e-5), y_ref) <= _rel_tol(dtype)
+    assert layer_norm_fwd.stats_launches == st0 + 1
+
+
+# (causal, QH, KH, QL, KL, E, pair dtype or None, kpad, segments)
+PAIR_CASES = {
+    "pair_bf16_causal_gqa": (True, 8, 2, 200, 200, 128, torch.bfloat16, False, False),
+    "pair_f32_kpad": (False, 4, 4, 130, 190, 64, torch.float32, True, False),
+    "segments_causal": (True, 8, 2, 256, 256, 128, None, False, True),
+    "pair_segments_kpad_causal": (True, 4, 2, 150, 150, 64, torch.bfloat16, True, True),
+}
+
+
+def _seg_ids(L, cuts):
+    """(1, L) int32 segment ids with a new document at each cut."""
+    ids = torch.zeros(L, dtype=torch.int32, device="cuda")
+    ids[[c for c in cuts if c < L]] = 1
+    return (torch.cumsum(ids, 0) + 1).to(torch.int32)[None]
+
+
+@pytest.mark.parametrize("case", list(PAIR_CASES))
+def test_flash_pair_segment_kernels(gen, case):
+    """C, dQ (with dpair) and dK/dV with the pair bias (N(0, 1), so that a
+    kernel dropping it fails) and segment ids, against the plain forward
+    and backward, per 64-row tile within 1e-2; dpair exactly 0 wherever
+    the mask hides the score (the tiles past the causal diagonal too);
+    launches counted by mode; two runs bit-identical."""
+    causal, QH, KH, QL, KL, E, pdt, kpad, segments = PAIR_CASES[case]
+    q, k, v = _bf(gen, 2, QH, QL, E), _bf(gen, 2, KH, KL, E), _bf(gen, 2, KH, KL, E)
+    do = _bf(gen, 2, QH, QL, E)
+    pair = torch.randn(2, QH, QL, KL, generator=gen, device="cuda").to(pdt) if pdt else None
+    mask = None
+    if kpad:
+        mask = torch.ones((2, KL), dtype=torch.bool, device="cuda")
+        mask[1, 40:47] = False
+    seg = None
+    if segments:
+        seg = (torch.cat([_seg_ids(QL, [70, 71, 150]), _seg_ids(QL, [3])]),
+               torch.cat([_seg_ids(KL, [70, 71, 150]), _seg_ids(KL, [3])]))
+    kw = dict(causal=causal, scale=E ** -0.5, kpad_mask=mask, pair=pair, segment_ids=seg)
+    counts = (flash_fwd.pair_launches, flash_fwd.segment_launches)
+    o, lse = flash_fwd(q, k, v, **kw)
+    assert (flash_fwd.pair_launches, flash_fwd.segment_launches) == (
+        counts[0] + (pair is not None), counts[1] + segments)
+    o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    assert _tile_rel_err(o, o_ref) <= 1e-2
+    without = naive.naive_attention(q, k, v, **dict(kw, pair=None, segment_ids=None))
+    assert _tile_rel_err(o, without) > 1e-2  # the features bind
+    counts = [(f.pair_launches, f.segment_launches) for f in (flash_bwd_dq, flash_bwd_dkv)]
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert [(f.pair_launches, f.segment_launches) for f in (flash_bwd_dq, flash_bwd_dkv)] == [
+        (c[0] + (pair is not None), c[1] + segments) for c in counts]
+    want = naive.naive_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert len(got) == len(want) == 3 + (pair is not None)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _tile_rel_err(g, w) <= 1e-2
+    if pair is not None:
+        hidden = torch.ones((2, 1, QL, KL), dtype=torch.bool, device="cuda")
+        if causal:
+            hidden &= torch.ones(QL, KL, dtype=torch.bool, device="cuda").tril()
+        if kpad:
+            hidden &= mask[:, None, None, :]
+        if segments:
+            hidden &= seg[0][:, None, :, None] == seg[1][:, None, None, :]
+        assert (got[3][~hidden.expand_as(got[3])] == 0).all()
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # autograd through flash_attention: C, then dQ and dK/dV, dpair as the
+    # pair's gradient
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    if pair is not None:
+        leaves.append(pair.clone().requires_grad_(True))
+    out = flash_attention(*leaves[:3], leaves[3] if pair is not None else None, causal=causal,
+                          kpad_mask=mask, segment_ids=seg)
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(out, leaves, do), got))
+
+
+@pytest.mark.parametrize("E", [32, 96])
+def test_flash_attention_padded_head_dims(gen, E):
+    """Head dims the kernels reach by zero-padding (32 -> 64, 96 -> 128),
+    forward and backward through flash_attention, against the plain
+    versions at the true head dim."""
+    q, k, v = _bf(gen, 2, 8, 150, E), _bf(gen, 2, 2, 150, E), _bf(gen, 2, 2, 150, E)
+    do = _bf(gen, 2, 8, 150, E)
+    kw = dict(causal=True, scale=E ** -0.5)
+    with torch.no_grad():
+        before = flash_fwd.mode_launches.get((64 if E == 32 else 128, False, False), 0)
+        o = flash_attention(q, k, v, causal=True)
+        assert flash_fwd.mode_launches[(64 if E == 32 else 128, False, False)] == before + 1
+    o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    assert o.shape == q.shape and _tile_rel_err(o, o_ref) <= 1e-2
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, causal=True), leaves, do)
+    for g, w in zip(grads, naive.naive_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)):
+        assert g.shape == w.shape and _tile_rel_err(g, w) <= 1e-2

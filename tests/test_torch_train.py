@@ -158,8 +158,9 @@ def test_plain_attention_bwd_matches_autograd(causal):
 @pytest.mark.parametrize("feature", [dict(window=4), dict(softcap=5.0)],
                          ids=["window", "softcap"])
 def test_flash_attention_features_have_no_backward(feature):
-    """The window and softcap (as pair and segment ids) have no backward
-    yet: a call that needs gradients raises, one that does not runs."""
+    """The window and softcap have no backward yet (pair bias and segment
+    ids have one: tests/test_torch_attention_pair.py): a call that needs
+    gradients raises, one that does not runs."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 8, 16)) for _ in range(3))
     assert flash_attention(q, k, v, causal=True, **feature).shape == q.shape
