@@ -1,7 +1,7 @@
 """Drive the port's serving and training paths once on one H100:
-Llama-3-8B and Mixtral-8x7B, each served and trained; Mistral-7B and
-Gemma-2-2B served; the NNop.jl op set (softmax, layer norm, attention
-with the pair bias and segment ids) and packed-document training.
+Llama-3-8B, Mixtral-8x7B, Mistral-7B and Gemma-2-2B, each served and
+trained; the NNop.jl op set (softmax, layer norm, attention with the
+pair bias and segment ids) and packed-document training.
 
     python3 chip_smoke.py
 
@@ -90,6 +90,15 @@ non-zero:
      and load_hf_llama: greedy streams identical to the same weights served
      directly. Window launches of C and D in (a)-(c), softcap launches in
      (c), first-token cosine >= 0.99 on every prompt, peak memory.
+ 13. the families trained, after 12: (a) the loss and every gradient
+     leaf of Mistral-7B and of Gemma-2-2B at full width with 2 layers
+     (Gemma-2: layer 0 windowed, layer 1 global), B 1, L 4608 (the window
+     binds past 4096), through the kernels against the plain ops; (b)
+     phase 8b's trainer on Mistral-7B with 8 layers and (c) on Gemma-2-2B
+     with GEMMA2_TRAIN_LAYERS, B 1, L 8192, 5 steps: every C, dQ and
+     dK/dV launch in the family's mode (Mistral's window at head dim 128;
+     Gemma-2's softcap at head dim 256, windowed on its even layers),
+     exact every step, and no plain version called.
  12. the op set, after 11: (a) online_softmax, layer_norm and
      flash_attention with the pair and with segment ids through
      torch.autograd at phase 3's shapes, one launch of each kernel per
@@ -103,8 +112,17 @@ non-zero:
      plain=True (cosine >= 0.9995); the step's ms and peak memory.
 Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
 (the new kernel) and dx (kernel I on the transposed experts), a planted
-fault, two bit-identical dw runs, experts without a row.
-Each serving phase (and phases 8b, 10b and 12) sets the launch counts to 0
+fault, two bit-identical dw runs, experts without a row; and the
+families' training kernels at B 1, L 8192: A-bwd at Gemma-2's rows with
+offset 1, B's backward at head dim 256, C, dQ and dK/dV with Mistral's
+window, Gemma-2's softcap (binding) with and without the window, head
+dim 256 without features (MQA) and segment ids with the softcap, per
+64-row tile against the plain backward (one group of heads at a time),
+with planted faults (the window one key or one 64-key tile too wide, dS
+without the factor 1 - t^2, dq without its upper 128 lanes) and two
+bit-identical runs; the library yardstick is SDPA's backward, or with
+the softcap compiled flex_attention's.
+Each serving phase (and phases 8b, 10b, 12 and 13b-c) sets the launch counts to 0
 just before it runs and reads them just after. The seconds of each phase
 are printed before the last two lines: {"kernels": [...]}, then {"ok":
 true, "device": {...}}.
@@ -116,6 +134,7 @@ import argparse
 import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -231,7 +250,16 @@ def phase_build():
     entry = spill = ""
     for line in res.log.splitlines():
         if "Compiling entry function" in line:  # the mangled name holds the kernel's name
-            entry = line.split("'")[1].split("_cu_")[-1][:70]
+            entry = line.split("'")[1]
+            flash = re.search(r"(flash_(fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)",
+                              entry)
+            if flash:  # C's flags: softcap, window, extra; the backward's: window, softcap, extra
+                name, kind, E, *bits = flash.groups()
+                flags = ("softcap", "window") if kind == "fwd" else ("window", "softcap")
+                entry = f"{name} E {E} " + " ".join(
+                    f"{f} {b}" for f, b in zip((*flags, "extra"), bits))
+            else:
+                entry = entry.split("_cu_")[-1][:70]
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line or "error" in line.lower():
@@ -412,6 +440,7 @@ def phase_kernels():
     phase_grouped_bwd(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
     phase_family_kernels(p3, gen, randn)
+    phase_family_train_kernels(p3, gen, randn)
     phase_opset_kernels(p3, gen, randn)
     return p3.results
 
@@ -994,6 +1023,251 @@ def phase_family_kernels(p3, gen, randn):
                   bound(moved, 0, "f32"), None, not quantized)
         del cache_args, got, pairs
         torch.cuda.empty_cache()
+
+
+def _bwd_in_groups(q, k, v, o, lse, do, groups, **kw):
+    """naive_attention_bwd over `groups` slices of the query heads and
+    their KV heads (dq joined along the query heads, dk and dv along the
+    KV heads): the plain backward with its f32 (heads, L, L)
+    intermediates cut to 1/groups."""
+    from nnop_tpu_torch.ops import naive
+
+    parts = [naive.naive_attention_bwd(*a, **kw) for a in zip(
+        *(t.chunk(groups, dim=1) for t in (q, k, v, o, lse, do)))]
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
+def _bwd_without_cap_factor(q, k, v, o, lse, do, groups, softcap, **kw):
+    """A planted fault: the plain backward with P from the capped scores
+    but dS without its factor 1 - t^2. The capped scores enter as a pair
+    bias, c tanh(s / c) - s, on the uncapped plain backward (kw as for
+    naive_attention_bwd, less the softcap)."""
+    from nnop_tpu_torch.ops import naive
+
+    parts = []
+    for qg, kg, vg, og, lg, dg in zip(*(t.chunk(groups, dim=1) for t in (q, k, v, o, lse, do))):
+        s = torch.einsum("bhqe,bhke->bhqk", qg.float(), kg.float().repeat_interleave(
+            qg.shape[1] // kg.shape[1], dim=1)) * kw["scale"]
+        pair = softcap * torch.tanh(s / softcap) - s
+        del s
+        parts.append(naive.naive_attention_bwd(qg, kg, vg, og, lg, dg, pair=pair, **kw)[:3])
+        del pair
+    return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+
+
+def flex_bwd_ms(name, q, k, v, do, window, softcap, seg=None):
+    """The backward of torch's flex_attention (compiled; a yardstick the
+    port never calls) on the same q, k, v and do: the score softcap as its
+    score_mod, causal plus the window or the documents as its block mask,
+    so one PyTorch call computes what dQ and dK/dV compute in softcap mode.
+    Its forward runs once, in the warm-up call, as for SDPA's backward.
+    Returns (ms or None, flex's dq)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        m = qi >= ki
+        if window is not None:
+            m = m & (qi - ki < window)
+        if seg is not None:
+            m = m & (seg[0][qi] == seg[0][ki])
+        return m
+
+    L, E = q.shape[2], q.shape[3]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    graph, grads = [], []
+
+    def flex_bwd():
+        if not graph:  # inside library_ms, which reports a refusal of this torch
+            block_mask = create_block_mask(mask_mod, None, None, L, L, device=q.device)
+            graph.append(torch.compile(flex_attention, dynamic=False)(
+                *leaves, score_mod=score_mod, block_mask=block_mask, scale=E ** -0.5,
+                enable_gqa=True))
+        out = torch.autograd.grad(graph[0], leaves, do, retain_graph=True)
+        grads[:] = out
+        return out
+
+    ms = library_ms(f"{name} (flex_attention)", flex_bwd, n=5)
+    return ms, (grads[0] if grads else None)
+
+
+def phase_family_train_kernels(p3, gen, randn):
+    """The families' training kernels: A-bwd at Gemma-2's rows (8192, 2304)
+    with offset 1, B's backward at head dim 256, then C, dQ and dK/dV at
+    their training geometry (B 1, L 8192): Mistral with the window,
+    Gemma-2 with the softcap (binding) with and without the window, head
+    dim 256 without features (MQA), and segment ids with the softcap; the
+    plain backward one group of heads at a time; planted faults (the
+    window one key and one 64-key tile too wide, dS without 1 - t^2, dq
+    without its upper 128 lanes) and two bit-identical runs."""
+    import torch.nn.functional as F
+
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.flash_attention import flash_fwd
+    from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
+    from nnop_tpu_torch.ops.rms_norm import rms_norm_bwd, rms_norm_fwd
+    from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope_bwd
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    L = 8192
+
+    # A-bwd at Gemma-2's trainer rows (B L = 8192, width 2304, offset 1)
+    x, dy = randn(L, 2304), randn(L, 2304)
+    w = (0.1 * torch.randn(2304, generator=gen, device=dev)).to(bf)
+    _, rstd = rms_norm_fwd(x, w, 1e-6, offset=1.0)
+    dx, dw = rms_norm_bwd(x, w, rstd, dy, offset=1.0)
+    dx_ref, dw_ref = naive.naive_rms_norm_bwd(x, w, rstd, dy, 1.0)
+    p3.report("rms_norm_bwd", "Gemma-2 dw (2304,) f32 over 8192 rows, offset 1",
+              ((dw - dw_ref).norm() / dw_ref.norm()).item(), DW_REL_TOL, DW_REL_WHY,
+              measure="relative error", abs_err=max_err(dw, dw_ref))
+    p3.report("rms_norm_bwd", "Gemma-2 dx (8192, 2304) bf16, offset 1", max_err(dx, dx_ref),
+              BF16_TOL, BF16_TOL_WHY, device_ms(lambda: rms_norm_bwd(x, w, rstd, dy, offset=1.0)),
+              device_ms(lambda: naive.naive_rms_norm_bwd(x, w, rstd, dy, 1.0)),
+              bound(3 * nbytes(x) + nbytes(w, rstd, dw), 8 * x.numel(), "f32"))
+    del x, dy, dx, dx_ref
+    # B's backward at head dim 256: Gemma-2's q and k gradients at L 8192
+    dq, dk = randn(1, 8, L, 256, scale=0.5), randn(1, 4, L, 256, scale=0.5)
+    cos, sin = RotaryEmbedding(256, 10000.0)(torch.arange(L, device=dev)[None])
+    got, want = llama_rope_bwd(dq, dk, cos, sin), naive.naive_rope(dq, dk, cos, sin, -1.0)
+    p3.report("llama_rope_bwd", "Gemma-2 dq (1, 8, 8192, 256), dk (1, 4, 8192, 256) bf16",
+              max(max_err(got[0], want[0]), max_err(got[1], want[1])), BF16_TOL, BF16_TOL_WHY,
+              device_ms(lambda: llama_rope_bwd(dq, dk, cos, sin)),
+              device_ms(lambda: naive.naive_rope(dq, dk, cos, sin, -1.0)),
+              bound(2 * nbytes(dq, dk) + nbytes(cos, sin), 3 * (dq.numel() + dk.numel()), "f32"))
+    del dq, dk, got, want, cos, sin
+
+    rows = torch.arange(L, device=dev)[:, None]
+    cols = torch.arange(L, device=dev)[None]
+
+    def bwd_case(name, case, QH, KH, E, window, softcap, q_scale=1.0, seg=None, main=False,
+                 groups=4, faults=(), identical=False, cut_lanes=False):
+        """C, then dQ and dK/dV, against the plain forward and backward
+        (`groups` head groups at a time, a divisor of KH) per 64-row tile;
+        timed, with the bound over the visible (row, key) pairs and SDPA's
+        backward (a boolean mask) where there is no softcap, else
+        flex_attention's backward (flex_bwd_ms). Each fault is
+        (what, the plain backward's wrong arguments or a function giving
+        its gradients)."""
+        q, do = randn(1, QH, L, E, scale=q_scale), randn(1, QH, L, E)
+        k, v = randn(1, KH, L, E), randn(1, KH, L, E)
+        kw = dict(causal=True, scale=E ** -0.5, window=window, softcap=softcap,
+                  segment_ids=None if seg is None else (seg, seg))
+        o, lse = flash_fwd(q, k, v, **kw)
+        o_ref = _heads_in_groups(naive.naive_attention, q, k, v, groups, **kw)
+        err = tile_rel_err(o, o_ref)
+        check(err <= ATTN_REL_TOL, f"{name} [{case}]: C's o tile relative error {err}")
+        del o_ref
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
+        ref = _bwd_in_groups(q, k, v, o, lse, do, groups, **kw)
+        if identical:
+            again = flash_bwd_dq(q, k, v, o, lse, do, **kw)[0], *flash_bwd_dkv(
+                q, k, v, lse, delta, do, **kw)
+            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+                  f"{name} [{case}]: two runs on the same inputs differ")
+            print(f"phase 3 {name} [{case}]: two runs of dQ and dK/dV are bit-identical")
+            del again
+        mask = cols <= rows
+        if window is not None:
+            mask &= rows - cols < window
+        if seg is not None:
+            mask &= seg[0][:, None] == seg[0][None, :]
+        pairs = QH * int(mask.sum())
+        lib = None
+        if softcap is None:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            sdpa_kw = dict(is_causal=True) if window is None and seg is None else dict(
+                attn_mask=mask)
+            graph = []  # SDPA's forward, run once by the warm-up call
+
+            def sdpa_bwd():
+                if not graph:
+                    graph.append(F.scaled_dot_product_attention(
+                        *leaves, scale=E ** -0.5, enable_gqa=True, **sdpa_kw))
+                return torch.autograd.grad(graph[0], leaves, do, retain_graph=True)
+
+            lib = library_ms(name, sdpa_bwd, n=5)
+            del leaves, graph
+        else:
+            lib, flex_dq = flex_bwd_ms(name, q, k, v, do, window, softcap, seg)
+            if flex_dq is not None:  # the yardstick computes the same function
+                print(f"phase 3 {name} [{case}]: flex_attention's dq against the plain "
+                      f"version: tile relative error {tile_rel_err(flex_dq, ref[0]):.3e}")
+            del flex_dq
+        plain_ms = device_ms(lambda: _bwd_in_groups(q, k, v, o, lse, do, groups, **kw), n=1,
+                             reps=3)
+        p3.report(name, f"{case}: dq", tile_rel_err(dq, ref[0]), BWD_REL_TOL, BWD_REL_WHY,
+                  device_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw), n=5), plain_ms,
+                  bound(nbytes(q, k, v, o, do, lse, dq, delta), 3 * 2 * E * pairs, "bf16"), lib,
+                  main, "tile relative error", max_err(dq, ref[0]))
+        p3.report(name.replace("_dq", "_dkv"), f"{case}: dk, dv",
+                  max(tile_rel_err(dk, ref[1]), tile_rel_err(dv, ref[2])), BWD_REL_TOL,
+                  BWD_REL_WHY + " (the larger of dk's and dv's)",
+                  device_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw), n=5), plain_ms,
+                  bound(nbytes(q, k, v, do, lse, delta, dk, dv), 4 * 2 * E * pairs, "bf16"), lib,
+                  main, "tile relative error", max(max_err(dk, ref[1]), max_err(dv, ref[2])))
+        for what, wrong in faults:
+            bad = (wrong(q, k, v, o, lse, do, groups, **kw) if callable(wrong) else
+                   _bwd_in_groups(q, k, v, o, lse, do, groups, **dict(kw, **wrong)))
+            _planted(name, what, max(tile_rel_err(g, b) for g, b in zip((dq, dk, dv), bad)))
+            del bad
+        if cut_lanes:
+            half = dq.clone()
+            half[..., 128:] = 0
+            _planted(name, "dq with its upper 128 lanes zeroed", tile_rel_err(half, ref[0]))
+            del half
+        del q, k, v, do, o, lse, dq, dk, dv, delta, ref, mask
+        torch.cuda.empty_cache()
+
+    def wider(w, by):
+        return (f"window {w} against plain {w + by}", dict(window=w + by))
+
+    no_factor = ("dS without the factor 1 - t^2", _bwd_without_cap_factor)
+
+    mistral, gemma2 = "Mistral: q (1, 32, 8192, 128), kv (1, 8, 8192, 128), causal", (
+        "Gemma-2: q (1, 8, 8192, 256), kv (1, 4, 8192, 256), causal")
+    cap = f"softcap 50 (binding: q x {BIG_Q:g})"
+    bwd_case("flash_bwd_dq_window", f"{mistral}, window 4096", 32, 8, 128, WINDOW, None,
+             main=True, groups=8, faults=[wider(WINDOW, 64)], identical=True)
+    bwd_case("flash_bwd_dq_e256_softcap", f"{gemma2}, {cap}, window 4096 (its even layers)", 8,
+             4, 256, WINDOW, 50.0, q_scale=BIG_Q, main=True,
+             faults=[no_factor, wider(WINDOW, 64)], identical=True, cut_lanes=True)
+    bwd_case("flash_bwd_dq_e256_softcap", f"{gemma2}, {cap}, no window (its odd layers)", 8, 4,
+             256, None, 50.0, q_scale=BIG_Q, faults=[no_factor])
+    bwd_case("flash_bwd_dq", "Gemma-2B MQA: q (1, 8, 8192, 256), kv (1, 1, 8192, 256), causal",
+             8, 1, 256, None, None, groups=1, cut_lanes=True)
+    seg = torch.arange(4, device=dev, dtype=torch.int32).repeat_interleave(L // 4)[None]
+    moved = seg.clone()
+    moved[:, L // 4] = 0  # the first boundary one key later (keys only)
+    bwd_case("flash_bwd_dq_segments", f"{gemma2}, {cap}, 4 documents of 2048", 8, 4, 256, None,
+             50.0, q_scale=BIG_Q, seg=seg, identical=True,
+             faults=[("a document boundary one key later", lambda *a, **kw: _bwd_in_groups(
+                 *a, **dict(kw, segment_ids=(seg, moved))))])
+    del seg, moved
+    # the window one key too wide, where one key is a visible share of a
+    # row's keys (at window 4096 it is 1/4096 of them)
+    L_small = 1024
+    for win in (17, 33):
+        q, do = randn(1, 32, L_small, 128), randn(1, 32, L_small, 128)
+        k, v = randn(1, 8, L_small, 128), randn(1, 8, L_small, 128)
+        kw = dict(causal=True, scale=128 ** -0.5, window=win)
+        o, lse = flash_fwd(q, k, v, **kw)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, **kw)
+        got = (dq, *flash_bwd_dkv(q, k, v, lse, delta, do, **kw))
+        ref = naive.naive_attention_bwd(q, k, v, o, lse, do, **kw)
+        case = f"window {win}: q (1, 32, 1024, 128), kv (1, 8, 1024, 128)"
+        p3.report("flash_bwd_dq_window", f"{case}: dq", tile_rel_err(got[0], ref[0]),
+                  BWD_REL_TOL, BWD_REL_WHY, measure="tile relative error")
+        p3.report("flash_bwd_dkv_window", f"{case}: dk, dv", max(
+            tile_rel_err(got[1], ref[1]), tile_rel_err(got[2], ref[2])), BWD_REL_TOL,
+            BWD_REL_WHY, measure="tile relative error")
+        bad = naive.naive_attention_bwd(q, k, v, o, lse, do, **dict(kw, window=win + 1))
+        _planted("flash_bwd_dq_window", f"window {win} against plain {win + 1}",
+                 max(tile_rel_err(g, b) for g, b in zip(got, bad)))
+    torch.cuda.empty_cache()
 
 
 ROW_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -1974,11 +2248,13 @@ GRAD_WHY = ("bf16 gradients through two layers of bf16 activations rounded in di
             "sqrt(2 (1 - cosine)) it implies; both stricter than the minimum cosine of 0.99")
 
 
-def train_launches(n_layers, moe=False):
-    """The kernel launches of one training step: 2 norms per layer + the
-    final norm, q and k rotated per layer, one attention per layer; a MoE
-    layer's three grouped products, each with its dx and dw."""
-    per = {"rms_norm_rstd": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
+def train_launches(n_layers, moe=False, post_norms=False):
+    """The kernel launches of one training step: 2 norms per layer (4 with
+    Gemma-2's post norms) + the final norm, q and k rotated per layer, one
+    attention per layer; a MoE layer's three grouped products, each with
+    its dx and dw."""
+    norms = (4 if post_norms else 2) * n_layers + 1
+    per = {"rms_norm_rstd": norms, "rms_norm_bwd": norms,
            "llama_rope": 2 * n_layers, "llama_rope_bwd": 2 * n_layers, "flash_fwd": n_layers,
            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
     if moe:
@@ -1991,14 +2267,30 @@ TRAIN_LAUNCHES_PER_STEP = train_launches(8)  # phase 8b's 8-layer trainer
 MOE_TRAIN_LAUNCHES_PER_STEP = train_launches(2, moe=True)  # phase 10b's 2-layer Mixtral
 
 
-def phase_grad_parity():
-    """8a: loss and gradients through the kernels and through the plain
-    ops, Llama-3-8B at full width with 2 layers, B=1, L=2048."""
-    from nnop_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+def family_train_launches(cfg):
+    """Phase 13's launches per step of Mistral-7B or Gemma-2-2B: the
+    trainer's, every C, dQ and dK/dV launch in its family's mode entry
+    (Mistral's window at head dim 128, Gemma-2's softcap at head dim 256),
+    and their window and softcap launches (Gemma-2's window on its even
+    layers only)."""
+    n = cfg.n_layers
+    n_win = sum(cfg.layer_window(i) is not None for i in range(n))
+    n_cap = n if cfg.attn_softcap is not None else 0
+    per = train_launches(n, post_norms=cfg.post_norms)
+    for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        per[f"{op}_{'e256_softcap' if n_cap else 'window'}"] = n
+        per[f"{op}.window_launches"] = n_win
+        per[f"{op}.softcap_launches"] = n_cap
+    return per
+
+
+def phase_grad_parity(tag, name, cfg, seq):
+    """8a and 13a: loss and gradients through the kernels and through the
+    plain ops, `cfg` (full width, 2 layers), B=1, L=seq."""
+    from nnop_tpu_torch.models.llama import init_params, loss_fn
     from nnop_tpu_torch.parallel.tp_llama import tree_leaves
 
     dev = torch.device("cuda")
-    cfg = LlamaConfig.llama3_8b(n_layers=2)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     params = init_params(gen, cfg)
@@ -2006,7 +2298,7 @@ def phase_grad_parity():
     for p in leaves:
         p.requires_grad_(True)
     rng = np.random.default_rng(SEED)
-    toks, tgts = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))).to(dev)
+    toks, tgts = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq))).to(dev)
                   for _ in range(2))
     results = []
     for plain in (False, True):
@@ -2018,17 +2310,18 @@ def phase_grad_parity():
     cos = [_cosine(a, b) for a, b in zip(k_grads, p_grads)]
     grel = [((a.float() - b.float()).norm() / b.float().norm()).item()
             for a, b in zip(k_grads, p_grads)]
-    print(f"phase 8a grads: Llama-3-8B width, 2 layers, B=1, L=2048: loss kernels {k_loss:.6f} "
+    print(f"phase {tag} grads: {name} width, {cfg.n_layers} layers, B=1, L={seq}: loss kernels "
+          f"{k_loss:.6f} "
           f"plain {p_loss:.6f} (relative {rel:.2e} <= {LOSS_RTOL:g}: {LOSS_RTOL_WHY}); "
           f"{len(cos)} gradient leaves, cosine min {min(cos):.6f} mean "
           f"{statistics.mean(cos):.6f} (>= {GRAD_COS} each), |g - plain| / |plain| max "
           f"{max(grel):.3e} mean {statistics.mean(grel):.3e} (<= {GRAD_REL:g} each): {GRAD_WHY}")
-    check(np.isfinite(k_loss) and rel <= LOSS_RTOL, f"loss relative difference {rel}")
-    check(all(bool(torch.isfinite(g).all()) for g in k_grads), "a non-finite gradient")
+    check(np.isfinite(k_loss) and rel <= LOSS_RTOL, f"{tag}: loss relative difference {rel}")
+    check(all(bool(torch.isfinite(g).all()) for g in k_grads), f"{tag}: a non-finite gradient")
     worst = min(range(len(cos)), key=cos.__getitem__)
-    check(min(cos) >= GRAD_COS, f"gradient leaf {worst}: cosine {cos[worst]}")
+    check(min(cos) >= GRAD_COS, f"{tag}: gradient leaf {worst}: cosine {cos[worst]}")
     worst = max(range(len(grel)), key=grel.__getitem__)
-    check(max(grel) <= GRAD_REL, f"gradient leaf {worst}: relative error {grel[worst]}")
+    check(max(grel) <= GRAD_REL, f"{tag}: gradient leaf {worst}: relative error {grel[worst]}")
     del params, leaves, results, k_grads, p_grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2219,11 +2512,11 @@ class _PlainCalls:
             setattr(mod, attr, fn)
 
 
-def phase_train(tag, cfg, expected, counters, idle):
-    """8b and 10b: cli.train_loop on `cfg` (full width, its depth cut),
-    B=1, L=4096, the CLI's synthetic stream, AdamW at lr 1e-4 for 5 steps,
-    the last step under torch.profiler; `expected` launches per step.
-    Returns the launch counts.
+def phase_train(tag, cfg, expected, counters, idle, seq=4096):
+    """8b, 10b and 13b-c: cli.train_loop on `cfg` (full width, its depth
+    cut), B=1, L=seq, the CLI's synthetic stream, AdamW at lr 1e-4 for 5
+    steps, the last step under torch.profiler; `expected` launches per
+    step. Returns the launch counts.
 
     The stream (7*i+3) % vocab has a period of vocab tokens; the script
     counts the (token, next token) pairs of a step's batch that occur in
@@ -2238,7 +2531,7 @@ def phase_train(tag, cfg, expected, counters, idle):
     from nnop_tpu_torch.parallel.tp_llama import tree_leaves
     from nnop_tpu_torch.runtime.dataio import batches, pack_tokens
 
-    seq, steps = 4096, 5
+    steps = 5
     lr = 1e-4  # the CLI's default 1e-3 raises step 1's loss at width 4096 (PERF.md)
     dev = torch.device("cuda")
     rows = pack_tokens([[(7 * i + 3) % cfg.vocab_size for i in range(seq * 64)]], seq_len=seq)
@@ -2316,6 +2609,17 @@ def phase_train(tag, cfg, expected, counters, idle):
         print(f"{tag} profile:   {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls "
               f" {e.key[:90]}")
     return launches
+
+
+# Phase 13c's depth: Gemma-2-2B has 26 layers. At L 8192 its loss alone
+# (f32 logits of 256000 columns, 8.4 GB a copy, with the final softcap
+# and log_softmax kept for the backward) peaks at 41.0 GiB with 2 layers,
+# and each layer adds 2.06 GiB (weights, gradients, AdamW moments and
+# activations; NVIDIA H100 80GB HBM3, PERF.md): 18 layers peaked at 73.85
+# GiB of the card's 79.2, 26 would need ~90. 16 layers (even, so windowed
+# and global layers both run) leave ~9 GiB for the allocator's
+# fragmentation, which differs from run to run
+GEMMA2_TRAIN_LAYERS = 16
 
 
 MOE_GRAD_COS = 0.9999
@@ -2517,6 +2821,7 @@ def main():
     gmm_src, gmm_rep = "nnop_tpu_torch/csrc/gmm.cu", "nnop_tpu/ops/grouped_matmul.py"
     flash_src, flash_rep = "nnop_tpu_torch/csrc/flash_fwd.cu", "nnop_tpu/ops/flash_attention.py"
     decode_rep = "nnop_tpu/ops/attention_decode.py:753"
+    bwd_src, bwd_rep = "nnop_tpu_torch/csrc/flash_bwd.cuh", "nnop_tpu/ops/flash_attention_bwd.py"
     # entry name -> (counter, route, source, the TPU kernel it replaces);
     # a bf16 entry of a kernel with an int8 mode counts the bf16 launches
     entries = {
@@ -2560,12 +2865,10 @@ def main():
                          "nnop_tpu_torch/ops/rms_norm.py", "nnop_tpu/ops/rms_norm.py:145"),
         "llama_rope_bwd": (Counter("llama_rope_bwd", llama_rope_bwd), "triton",
                            "nnop_tpu_torch/ops/rope.py", "nnop_tpu/ops/rope.py:102"),
-        "flash_bwd_dq": (Counter("flash_bwd_dq", flash_bwd_dq), "cuda",
-                         "nnop_tpu_torch/csrc/flash_bwd.cu",
-                         "nnop_tpu/ops/flash_attention_bwd.py:678"),
-        "flash_bwd_dkv": (Counter("flash_bwd_dkv", flash_bwd_dkv), "cuda",
-                          "nnop_tpu_torch/csrc/flash_bwd.cu",
-                          "nnop_tpu/ops/flash_attention_bwd.py:724"),
+        "flash_bwd_dq": (Counter("flash_bwd_dq", flash_bwd_dq), "cuda", bwd_src,
+                         f"{bwd_rep}:678"),
+        "flash_bwd_dkv": (Counter("flash_bwd_dkv", flash_bwd_dkv), "cuda", bwd_src,
+                          f"{bwd_rep}:724"),
         "grouped_matmul": (Counter("grouped_matmul", grouped_matmul, minus="dx_launches"),
                            "cuda", gmm_src, f"{gmm_rep}:111"),
         "grouped_matmul_dx": (Counter("grouped_matmul_dx", grouped_matmul, "dx_launches"), "cuda",
@@ -2611,10 +2914,16 @@ def main():
            for kind, attr in (("pair", "pair_launches"), ("segments", "segment_launches"))
            for name, fn, src, rep in (
                ("flash_fwd", flash_fwd, flash_src, f"{flash_rep}:1309"),
-               ("flash_bwd_dq", flash_bwd_dq, "nnop_tpu_torch/csrc/flash_bwd.cu",
-                "nnop_tpu/ops/flash_attention_bwd.py:678"),
-               ("flash_bwd_dkv", flash_bwd_dkv, "nnop_tpu_torch/csrc/flash_bwd.cu",
-                "nnop_tpu/ops/flash_attention_bwd.py:724"))},
+               ("flash_bwd_dq", flash_bwd_dq, bwd_src, f"{bwd_rep}:678"),
+               ("flash_bwd_dkv", flash_bwd_dkv, bwd_src, f"{bwd_rep}:724"))},
+        # the families' training modes of dQ and dK/dV (phase 13): Mistral's
+        # window at head dim 128 and Gemma-2's softcap at head dim 256, each
+        # counted by its own (head dim, flags)
+        **{f"{name}_{kind}": (Counter(f"{name}_{kind}", fn, mode=mode), "cuda", bwd_src, rep)
+           for kind, mode in (("window", lambda E, win, cap: E == 128 and win and not cap),
+                              ("e256_softcap", lambda E, win, cap: E == 256 and cap))
+           for name, fn, rep in (("flash_bwd_dq", flash_bwd_dq, f"{bwd_rep}:1223"),
+                                 ("flash_bwd_dkv", flash_bwd_dkv, f"{bwd_rep}:1324"))},
     }
     seconds, t_start = {}, [time.perf_counter()]
 
@@ -2771,7 +3080,7 @@ def main():
     done("9b")
 
     # 8. training, on the memory the serving phases freed
-    phase_grad_parity()
+    phase_grad_parity("8a", "Llama-3-8B", LlamaConfig.llama3_8b(n_layers=2), 2048)
     counts = phase_train("phase 8b", LlamaConfig.llama3_8b(n_layers=8), TRAIN_LAUNCHES_PER_STEP,
                          counters(*TRAIN_LAUNCHES_PER_STEP),
                          [c for name, (c, *_) in entries.items()
@@ -2858,6 +3167,26 @@ def main():
     record(phase_packed(every, dict(train_launches(2), flash_fwd_segments=2,
                                     flash_bwd_dq_segments=2, flash_bwd_dkv_segments=2)))
     done("12")
+
+    # 13. the families trained: (a) gradients against the plain path at
+    #     full width, 2 layers, L 4608 (the window binds past 4096); (b)
+    #     Mistral-7B with 8 layers and (c) Gemma-2-2B with
+    #     GEMMA2_TRAIN_LAYERS through cli.train_loop at L 8192
+    for name, fcfg in (("Mistral-7B", LlamaConfig.mistral_7b(n_layers=2)),
+                       ("Gemma-2-2B", LlamaConfig.gemma2_2b(n_layers=2))):
+        phase_grad_parity("13a", name, fcfg, 4608)
+    done("13a")
+    for tag, fcfg in (("13b", LlamaConfig.mistral_7b(n_layers=8)),
+                      ("13c", LlamaConfig.gemma2_2b(n_layers=GEMMA2_TRAIN_LAYERS))):
+        expected = family_train_launches(fcfg)
+        counts = phase_train(
+            f"phase {tag}", fcfg, expected,
+            counters(*(n for n in expected if n in entries)) + features(
+                flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+                attrs=("window_launches", "softcap_launches")),
+            [c for name, (c, *_) in entries.items() if name not in expected], seq=8192)
+        record(counts)
+        done(tag)
     print(f"phase seconds: {seconds}; total {sum(seconds.values()):.1f}")
 
     line = {"kernels": [

@@ -34,7 +34,7 @@
 // no per-score test for them (a runtime window test slowed the plain
 // causal path). So is kExtra, the "extra score terms": the pair bias
 // and the segment ids, each pointer nullable inside it (one flag, not
-// two, keeps the instantiations at 18). A bf16 pair with an even KL is
+// two, keeps the instantiations at 24). A bf16 pair with an even KL is
 // read two columns a load, for the whole key tile before its QK^T product
 // (the loads overlap the product); an f32 pair, or an odd KL, one visible
 // score at a time. The key tile's segment ids are staged in shared memory
@@ -352,11 +352,13 @@ cudaError_t launch_one(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
 }
 
 // The instantiation for the features asked for (softcap > 0, window > 0,
-// extra: a pair bias or segment ids, never with the softcap).
+// extra: a pair bias or segment ids; the softcap only with segment ids).
 template <int E, typename... Args>
 cudaError_t launch(float softcap, int window, bool extra, Args... args) {
   if (extra) {
-    if (softcap > 0.f) return cudaErrorInvalidValue;
+    if (softcap > 0.f)
+      return window > 0 ? launch_one<E, true, true, true>(args..., window, softcap)
+                        : launch_one<E, true, false, true>(args..., window, softcap);
     return window > 0 ? launch_one<E, false, true, true>(args..., window, softcap)
                       : launch_one<E, false, false, true>(args..., window, softcap);
   }
@@ -374,7 +376,7 @@ cudaError_t launch(float softcap, int window, bool extra, Args... args) {
 // or null; q_seg (B, QL) and kv_seg (B, KL) int32, both or neither; lse
 // (B, QH, QL) f32. E is 64, 128 or 256. window > 0 (with causal) keeps the
 // last `window` positions; softcap > 0 caps the scores; 0 turns either
-// off. The softcap takes no pair and no segment ids.
+// off. The softcap takes no pair.
 extern "C" int nnop_flash_fwd(const void* q, const void* k, const void* v, const void* kpad,
                               const void* pair, const void* q_seg, const void* kv_seg, void* o,
                               void* lse, int B, int QH, int KH, int QL, int KL, int E,

@@ -18,17 +18,15 @@ on the card), segment_ids ((B, QL), (B, KL)) ints. GQA: query head h
 reads KV head h // (QH // KH). The kernel takes bf16 and head dim 64, 128
 or 256; `flash_attention` zero-pads any other head dim up to the next of
 them on the card (the JAX op's padding, nnop_tpu/ops/flash_attention.py
-:1471-1483). The softcap takes no pair (as in JAX), and on the card no
-segment ids either.
+:1471-1483). The softcap takes no pair (as in JAX).
 
 `flash_attention` is differentiable through a `torch.autograd.Function`
 (the JAX custom VJP, nnop_tpu/ops/flash_attention.py:1350-1379): its
 forward is kernel C, which saves q, k, v, o, lse, the pair, kpad_mask and
-the segment ids, and its backward the dQ and dK/dV kernels
-(ops/flash_attention_bwd.py), which return dpair as the pair's gradient.
-The window and the softcap have no backward yet: with them, a call that
-needs gradients raises NotImplementedError on any device.
-`flash_attention_chunked` stays forward-only, as in the JAX package.
+the segment ids (and keeps the window and the softcap), and its backward
+the dQ and dK/dV kernels (ops/flash_attention_bwd.py) in the same modes,
+which return dpair as the pair's gradient. `flash_attention_chunked`
+stays forward-only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,16 +61,13 @@ def _validate(q, k, v, pair, kpad_mask):
             raise ValueError(f"kpad_mask shape {tuple(kpad_mask.shape)}, expected {expect}")
 
 
-def kernel_head_dim(E: int, grad: bool) -> int:
-    """The head dim the kernels run E at on the card: the next of 64 and
-    128, and 256 without grad (the backward kernels stop at 128). Raises
-    ValueError past the largest."""
-    dims = (64, 128) if grad else (64, 128, 256)
-    for d in dims:
+def kernel_head_dim(E: int) -> int:
+    """The head dim the kernels (forward and backward) run E at on the
+    card: the next of 64, 128 and 256. Raises ValueError past 256."""
+    for d in (64, 128, 256):
         if E <= d:
             return d
-    raise ValueError(f"head dim {E} > {dims[-1]}, the largest the kernels take"
-                     + (" with gradients" if grad else ""))
+    raise ValueError(f"head dim {E} > 256, the largest the kernels take")
 
 
 def pad_head_dim(fn, q, k, v, Ep: int):
@@ -96,6 +91,24 @@ def _segments(segment_ids, q, k):
             raise ValueError(f"{name} segment ids shape {tuple(t.shape)}, expected "
                              f"{(q.shape[0], n)}")
     return q_seg, kv_seg
+
+
+def count_launch(fn, E, pair, segment_ids, window, softcap):
+    """One launch of an attention kernel (C, dQ or dK/dV) on fn's counters."""
+    fn.launches += 1
+    fn.pair_launches += pair is not None
+    fn.segment_launches += segment_ids is not None
+    fn.window_launches += window is not None
+    fn.softcap_launches += softcap is not None
+    mode = (E, window is not None, softcap is not None)
+    fn.mode_launches[mode] = fn.mode_launches.get(mode, 0) + 1
+
+
+def init_counters(fn):
+    for name in ("launches", "pair_launches", "segment_launches", "window_launches",
+                 "softcap_launches"):
+        setattr(fn, name, 0)
+    fn.mode_launches = {}
 
 
 @torch.no_grad()
@@ -123,8 +136,6 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if softcap is not None and pair is not None:
         raise ValueError("softcap is incompatible with pair bias")
-    if softcap is not None and segment_ids is not None:
-        raise NotImplementedError("flash_fwd: segment ids with the softcap are not on the kernel")
     check_cuda_operand("q", q, (torch.bfloat16,))
     check_cuda_operand("k", k, (torch.bfloat16,), device=q.device)
     check_cuda_operand("v", v, (torch.bfloat16,), device=q.device)
@@ -151,32 +162,21 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch("flash_fwd", err)
-    flash_fwd.launches += 1
-    flash_fwd.window_launches += window is not None
-    flash_fwd.softcap_launches += softcap is not None
-    flash_fwd.pair_launches += pair is not None
-    flash_fwd.segment_launches += segment_ids is not None
-    mode = (E, window is not None, softcap is not None)
-    flash_fwd.mode_launches[mode] = flash_fwd.mode_launches.get(mode, 0) + 1
+    count_launch(flash_fwd, E, pair, segment_ids, window, softcap)
     return o, lse
 
 
-flash_fwd.launches = 0
-flash_fwd.window_launches = 0
-flash_fwd.softcap_launches = 0
-flash_fwd.pair_launches = 0
-flash_fwd.segment_launches = 0
-flash_fwd.mode_launches = {}
+init_counters(flash_fwd)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale):
+    def forward(ctx, q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale, window, softcap):
         segment_ids = (q_seg, kv_seg) if q_seg is not None else None
         o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask,
-                           pair=pair, segment_ids=segment_ids)
+                           pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, o, lse, pair, kpad_mask, q_seg, kv_seg)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window, ctx.softcap = causal, scale, window, softcap
         return o
 
     @staticmethod
@@ -188,9 +188,10 @@ class _FlashAttention(torch.autograd.Function):
         grads = flash_attention_bwd(
             q, k, v, o, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale,
             kpad_mask=kpad_mask, pair=pair,
-            segment_ids=(q_seg, kv_seg) if q_seg is not None else None, want_dpair=want_dpair)
+            segment_ids=(q_seg, kv_seg) if q_seg is not None else None, want_dpair=want_dpair,
+            window=ctx.window, softcap=ctx.softcap)
         dpair = grads[3] if want_dpair else None
-        return (*grads[:3], dpair, None, None, None, None, None)
+        return (*grads[:3], dpair) + (None,) * 7
 
 
 def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
@@ -223,22 +224,18 @@ def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
         softcap = float(softcap)
     E = q.shape[-1]
     scale = float(1.0 / (E ** 0.5) if scale is None else scale)
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, pair))
-    if grad and (window is not None or softcap is not None):
-        raise NotImplementedError("flash_attention: no backward for the window or the "
-                                  "softcap yet")
     if q.device.type == "cuda":
-        Ep = kernel_head_dim(E, grad)
+        Ep = kernel_head_dim(E)
         if Ep != E:
             return pad_head_dim(lambda q, k, v: flash_attention(
                 q, k, v, pair, causal=causal, kpad_mask=kpad_mask, segment_ids=segment_ids,
                 scale=scale, window=window, softcap=softcap), q, k, v, Ep)
         if pair is not None:
             pair = pair.contiguous()
-    if grad:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, pair)):
         q_seg, kv_seg = segment_ids if segment_ids is not None else (None, None)
-        return _FlashAttention.apply(q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale)
+        return _FlashAttention.apply(q, k, v, pair, kpad_mask, q_seg, kv_seg, causal, scale,
+                                     window, softcap)
     o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask,
                      pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
     return o

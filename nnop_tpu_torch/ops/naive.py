@@ -184,15 +184,19 @@ def naive_attention(
 
 
 def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad_mask=None,
-                        pair=None, segment_ids=None):
+                        pair=None, segment_ids=None, window: int | None = None,
+                        softcap: float | None = None):
     """The attention backward as explicit formulas
     (nnop_tpu/ops/flash_attention_bwd.py:40-130 and :1067-1071), from the
     forward's o and lse (B, QH, QL) in nats; layouts as naive_attention,
-    causal from row 0. With s = scale * q k^T (+ pair) recomputed under
-    the forward's mask (causal, kpad, q_seg[i] == kv_seg[j]):
+    causal from row 0. With s = scale * q k^T, then with a softcap c
+    t = tanh(s / c) and s = c * t, then + pair, recomputed under the
+    forward's mask (causal, with a window w also i - j < w; kpad;
+    q_seg[i] == kv_seg[j]):
       delta = sum_e do * o;  P = exp(s - lse);  dP = do v^T
-      dS = P * (dP - delta);  dq = scale * dS k;  dk = scale * dS^T q
-      dv = P^T do;  dpair = dS (before the scale, :218-220)
+      dS = P * (dP - delta), times 1 - t^2 with a softcap (:125-129)
+      dq = scale * dS k;  dk = scale * dS^T q;  dv = P^T do
+      dpair = dS (before the scale, :218-220)
     masked entries of P and dS exact zeros (a row with no visible key
     gets zero gradients); P and dS rounded to the operand dtype before
     their products, as the kernels do; dk and dv summed over each KV
@@ -205,12 +209,18 @@ def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad
     vf = v.float().repeat_interleave(rep, dim=1)
     qf, dof = q.float(), do.float()
     s = torch.einsum("bhqe,bhke->bhqk", qf, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
     if pair is not None:
         s = s + pair.float()
     mask = torch.ones((1, 1, QL, KL), dtype=torch.bool, device=q.device)
     if causal:
-        mask = mask & (torch.arange(QL, device=q.device)[:, None]
-                       >= torch.arange(KL, device=q.device)[None, :])
+        rows = torch.arange(QL, device=q.device)[:, None]
+        cols = torch.arange(KL, device=q.device)[None, :]
+        mask = mask & (rows >= cols)
+        if window is not None:
+            mask = mask & (rows - cols < window)
     if kpad_mask is not None:
         mask = mask & kpad_mask[:, None, None, :].bool()
     if segment_ids is not None:
@@ -220,6 +230,8 @@ def naive_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float, kpad
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     dp = torch.einsum("bhqe,bhke->bhqk", dof, vf)
     ds = torch.where(mask, p * (dp - delta), torch.zeros_like(s))
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
     p_r, ds_r = p.to(v.dtype).float(), ds.to(q.dtype).float()
     dq = torch.einsum("bhqk,bhke->bhqe", ds_r, kf) * scale
     dk = torch.einsum("bhqk,bhqe->bhke", ds_r, qf) * scale

@@ -39,11 +39,11 @@ SIGNATURES = {
     # pair_f32, scale, causal, offset, window, softcap, stream
     "nnop_flash_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _F, _P],
     # q, k, v, o, dout, lse, kpad, pair, q_seg, kv_seg, dq, dpair, delta, B,
-    # QH, KH, QL, KL, E, pair_f32, scale, causal, stream
-    "nnop_flash_bwd_dq": [_P] * 13 + [_I] * 7 + [_F, _I, _P],
+    # QH, KH, QL, KL, E, pair_f32, scale, causal, window, softcap, stream
+    "nnop_flash_bwd_dq": [_P] * 13 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # q, k, v, dout, lse, delta, kpad, pair, q_seg, kv_seg, dk, dv, B, QH,
-    # KH, QL, KL, E, pair_f32, scale, causal, stream
-    "nnop_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    # KH, QL, KL, E, pair_f32, scale, causal, window, softcap, stream
+    "nnop_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
     # page_table, o, B, QH, KH, S, E, n_blocks, max_pages, n_layers, layer,
     # W, staged_n, scale, window, softcap, q_is_f32, cache_is_int8, stream

@@ -137,13 +137,14 @@ def test_plain_attention_bwd_with_pair_and_segments_matches_autograd(causal):
 
 
 def test_head_dim_padding_gives_the_plain_result():
-    """The card's head-dim padding (E 48 run at 64, E 96 at 128) gives the
-    unpadded plain result, output and gradients, with the scale of the
-    true E; E past the kernels' largest raises."""
+    """The card's head-dim padding (E 48 run at 64, E 96 at 128, E 200 at
+    256, with or without gradients) gives the unpadded plain result,
+    output and gradients, with the scale of the true E; E past the
+    kernels' largest raises."""
     rng = np.random.default_rng(8)
-    for E in (48, 96):
-        Ep = kernel_head_dim(E, grad=True)
-        assert Ep == (64 if E == 48 else 128)
+    for E in (48, 96, 200):
+        Ep = kernel_head_dim(E)
+        assert Ep == {48: 64, 96: 128, 200: 256}[E]
         leaves = [_leaf(_rand(rng, 1, h, 40, E)) for h in (4, 2, 2)]
         pair = _leaf(_rand(rng, 1, 4, 40, 40))
         do = torch.from_numpy(_rand(rng, 1, 4, 40, E))
@@ -155,11 +156,11 @@ def test_head_dim_padding_gives_the_plain_result():
         torch.testing.assert_close(got_o, want_o, atol=1e-6, rtol=0)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
-    assert kernel_head_dim(200, grad=False) == 256
+    assert kernel_head_dim(256) == 256
     with pytest.raises(ValueError):
-        kernel_head_dim(200, grad=True)
+        kernel_head_dim(257)
     with pytest.raises(ValueError):
-        kernel_head_dim(300, grad=False)
+        kernel_head_dim(300)
 
 
 # ---- packed documents ------------------------------------------------------

@@ -111,10 +111,22 @@ def test_flash_attention_chunked_window_matches_jax(window, softcap):
 
 
 def test_flash_attention_grad_with_window_or_softcap_raises():
-    q, k, v = (torch.randn(1, 2, 16, 256, requires_grad=True) for _ in range(3))
-    for kw in (dict(window=4), dict(softcap=5.0)):
-        with pytest.raises(NotImplementedError, match="no backward"):
-            flash_attention(q, k, v, causal=True, **kw)
+    """Under grad the window and the softcap no longer raise (the name is
+    from when they did): dq, dk, dv with both, at head dim 256 and a
+    softcap that binds (q x 8), against jax.vjp of the JAX op. L 128: the
+    JAX backward with a softcap gives NaN gradients at a length that is
+    not a multiple of its key block."""
+    q, k, v = _qkv(4, 1, 2, 1, 128, 128, 256)
+    q = 8 * q
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=True, window=4, softcap=5.0)
+    want = jax.jit(lambda q, k, v, do: jax.vjp(
+        lambda a, b, c: j_flash_attention(a, b, c, **kw), q, k, v)[1](do))(q, k, v, do)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, _t(do))
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL_OPS, rtol=0,
+                                   err_msg=f"d{name}")
 
 
 # ---- decode attention: the window and the softcap ------------------------

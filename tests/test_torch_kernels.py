@@ -21,7 +21,9 @@ set's row kernels (softmax and layer norm, forward and backward, in one
 block and in column chunks) are held per row to a relative error (1e-5
 in f32, 1e-2 in bf16; dw and db 1e-4), and attention with the pair bias
 and segment ids (C, dQ with dpair, dK/dV), and at head dims the kernels
-reach by padding (32, 96), to 1e-2 relative per 64-row tile.
+reach by padding (32, 96), to 1e-2 relative per 64-row tile; so are
+dQ and dK/dV with the window, the softcap (where it binds), head dim 256
+and segment ids with the softcap.
 """
 
 import pytest
@@ -571,6 +573,63 @@ def test_flash_bwd_kernels(gen, case):
     assert torch.equal(out, o)
     assert all(torch.equal(a, b) for a, b in
                zip(torch.autograd.grad(out, leaves, do), got))
+
+
+# (QH, KH, L, E, window, softcap, q scale, segments): the window (ragged
+# lengths, a window shorter than a tile), the softcap where it binds (q
+# scaled), both, head dim 256 (GQA and MQA) and segment ids with the
+# softcap; every query row sees at least its own key
+BWD_FEATURE_CASES = {
+    "window40_E128": (8, 2, 300, 128, 40, None, 1.0, False),
+    "window17_E64_ragged": (4, 2, 203, 64, 17, None, 1.0, False),
+    "softcap5_E128": (8, 2, 256, 128, None, 5.0, 4.0, False),
+    "window33_softcap5_E64": (4, 1, 200, 64, 33, 5.0, 4.0, False),
+    "E256": (8, 4, 300, 256, None, None, 1.0, False),
+    "E256_window100_softcap50": (8, 4, 300, 256, 100, 50.0, 40.0, False),
+    "E256_mqa_softcap50": (8, 1, 257, 256, None, 50.0, 40.0, False),
+    "segments_E256_window100_softcap50": (8, 4, 256, 256, 100, 50.0, 40.0, True),
+    "segments_E128_softcap5": (8, 2, 256, 128, None, 5.0, 4.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_FEATURE_CASES))
+def test_flash_bwd_window_softcap_kernels(gen, case):
+    """dQ and dK/dV with the window, the softcap and head dim 256 (and
+    segment ids with the softcap) against the plain backward, from kernel
+    C's o and lse, per 64-row query or key tile within 1e-2; the features
+    bind (C's o against the plain forward without them reads above 1e-2);
+    launches
+    counted by mode; two runs bit-identical; autograd through
+    flash_attention runs C, dQ and dK/dV in the same mode."""
+    QH, KH, L, E, window, softcap, q_scale, segments = BWD_FEATURE_CASES[case]
+    q, do = _bf(gen, 2, QH, L, E, scale=q_scale), _bf(gen, 2, QH, L, E)
+    k, v = _bf(gen, 2, KH, L, E), _bf(gen, 2, KH, L, E)
+    seg = None
+    if segments:
+        seg = (torch.cat([_seg_ids(L, [70, 71, 150]), _seg_ids(L, [3])]),) * 2
+    kw = dict(causal=True, scale=E ** -0.5, window=window, softcap=softcap, segment_ids=seg)
+    o, lse = flash_fwd(q, k, v, **kw)
+    assert _tile_rel_err(o, naive.naive_attention(q, k, v, **kw)) <= 1e-2
+    if window is not None or softcap is not None:  # the features bind
+        without = naive.naive_attention(q, k, v, **dict(kw, window=None, softcap=None))
+        assert _tile_rel_err(o, without) > 1e-2
+    mode = (E, window is not None, softcap is not None)
+    before = [(f.mode_launches.get(mode, 0), f.window_launches, f.softcap_launches,
+               f.segment_launches) for f in (flash_bwd_dq, flash_bwd_dkv)]
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert [(f.mode_launches[mode], f.window_launches, f.softcap_launches, f.segment_launches)
+            for f in (flash_bwd_dq, flash_bwd_dkv)] == [
+        (b[0] + 1, b[1] + (window is not None), b[2] + (softcap is not None), b[3] + segments)
+        for b in before]
+    want = naive.naive_attention_bwd(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and _tile_rel_err(g, w) <= 1e-2
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, window=window, softcap=softcap, segment_ids=seg)
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad(out, leaves, do), got))
 
 
 @pytest.mark.parametrize("window", [None, 40], ids=["no_window", "window40"])

@@ -155,17 +155,32 @@ def test_plain_attention_bwd_matches_autograd(causal):
         assert (got[0][1, :, :5] == 0).all()
 
 
-@pytest.mark.parametrize("feature", [dict(window=4), dict(softcap=5.0)],
+@pytest.mark.parametrize("feature", [dict(window=4), dict(softcap=0.5)],
                          ids=["window", "softcap"])
 def test_flash_attention_features_have_no_backward(feature):
-    """The window and softcap have no backward yet (pair bias and segment
-    ids have one: tests/test_torch_attention_pair.py): a call that needs
-    gradients raises, one that does not runs."""
+    """The window and the softcap have a backward now (the name is from
+    when a call under grad raised): naive_attention_bwd, the kernels'
+    oracle, against autograd through naive_attention, with GQA, ragged
+    rows and a feature that binds (window 4 of 21 keys; softcap 0.5 under
+    scores of std ~1); flash_attention's gradients on the CPU are the plain
+    backward's."""
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 8, 16)) for _ in range(3))
-    assert flash_attention(q, k, v, causal=True, **feature).shape == q.shape
-    with pytest.raises(NotImplementedError):
-        flash_attention(q.requires_grad_(True), k, v, causal=True, **feature)
+    q, k, v = (torch.from_numpy(_rand(rng, 2, h, 21, 16)).requires_grad_(True)
+               for h in (4, 2, 2))
+    do = torch.from_numpy(_rand(rng, 2, 4, 21, 16))
+    kw = dict(causal=True, scale=0.25, **feature)
+    o, lse = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = naive.naive_attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                                    lse.detach(), do, **kw)
+    for g, w, name in zip(got, want, "qkv"):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0, msg=f"d{name}")
+    without = naive.naive_attention(q, k, v, causal=True, scale=0.25)
+    assert (without - o).abs().max().item() > 1e-2  # the feature binds
+    out = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(out, o, atol=0, rtol=0)
+    for g, w in zip(torch.autograd.grad(out, (q, k, v), do), got):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("offset", [0.0, 1.0])
