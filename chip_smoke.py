@@ -1,7 +1,8 @@
 """Drive the port's serving and training paths once on one H100:
 Llama-3-8B, Mixtral-8x7B, Mistral-7B and Gemma-2-2B, each served and
 trained; the NNop.jl op set (softmax, layer norm, attention with the
-pair bias and segment ids) and packed-document training.
+pair bias and segment ids) and packed-document training; speculative
+decoding and per-token logprobs.
 
     python3 chip_smoke.py
 
@@ -110,6 +111,39 @@ non-zero:
      in their segment modes); each document's logits against the
      document run alone (cosine >= 0.999), every gradient leaf against
      plain=True (cosine >= 0.9995); the step's ms and peak memory.
+ 14. speculative decoding and logprobs, each on weights a serving phase
+     holds (run right after it), prompts of repeated 64-token runs (so
+     that prompt lookup finds drafts), 64 new tokens each, through
+     EngineServer: (a) after 4, Llama-3-8B bf16, Engine(max_batch=8,
+     max_seq=2048, spec_k=4), 4 requests of 200-1100 tokens; (b) after
+     5, the int8 weights and cache; (c) after 11c, Gemma-2-2B at prompts
+     of 300, 4600 and 6200 tokens (the verify mode at head dim 256 with
+     the window and the softcap). Each: every prompt's first verify
+     step's 5 rows of logits, taken by make_spec_chunk(with_logits=True)
+     outside the served runs, against forward(plain=True) on the prompt
+     and the 5 input tokens (cosine >= 0.99); the streams against the
+     plain engine's on the same prompts, identical or parted where the
+     plain forward's logits of the two tokens tie (within NEAR_TIE_REL of
+     max|logit|; at most WIDE_TIES_MAX a phase past that, within
+     WIDE_TIE_ULPS; each parting printed by kind); D's verify launches =
+     layers x verify steps dispatched (counted by E's flushes) and no
+     T = 1 launch of D; tokens per verify step and both engines' tokens/s
+     (observations). (d) a sampled spec request (temperature 0.8, top_p
+     0.9) runs to its length; (e) Engine(logprobs=True) through the
+     server's "logprobs" field, each value against log_softmax of the
+     plain forward's f32 logits (LOGPROB_TOL), the first against the
+     engine's own f32 first-token logits (LOGPROB_OWN_TOL, below a bf16
+     logprob's rounding), and spec decoding with logprobs or paged raises
+     ValueError.
+Phase 3 also holds kernel D's speculative-verify mode (T > 1) at the spec
+path's shapes: Llama-3-8B's cache with q (8, 32, 5, 128) in bf16 and
+int8, Mistral-7B past its window, Gemma-2-2B at head dim 256 with the
+softcap binding, and G 8 at T 9 (three z-blocks), per 64-row tile
+against the plain version, with SDPA over the joined K/V and the same
+mask as the yardstick (with the softcap, compiled flex_attention's
+forward, its softcap as score_mod) and planted faults (the intra-draft mask one
+staged row too wide, every draft cut at the first draft's window edge,
+the last z-block's rows dropped) that must read above the limit.
 Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
 (the new kernel) and dx (kernel I on the transposed experts), a planted
 fault, two bit-identical dw runs, experts without a row; and the
@@ -122,7 +156,7 @@ with planted faults (the window one key or one 64-key tile too wide, dS
 without the factor 1 - t^2, dq without its upper 128 lanes) and two
 bit-identical runs; the library yardstick is SDPA's backward, or with
 the softcap compiled flex_attention's.
-Each serving phase (and phases 8b, 10b, 12 and 13b-c) sets the launch counts to 0
+Each serving phase (and phases 8b, 10b, 12, 13b-c and 14a-c) sets the launch counts to 0
 just before it runs and reads them just after. The seconds of each phase
 are printed before the last two lines: {"kernels": [...]}, then {"ok":
 true, "device": {...}}.
@@ -134,6 +168,7 @@ import argparse
 import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -202,6 +237,12 @@ def bound(nbytes, ops, kind):
                 "operations")
 
 
+def _score_kind(cache):
+    """The operand type of D's scores and P.V for bound(): bf16 over a bf16
+    or int8 cache (q and P are rounded to bf16 there), f32 over an f32 one."""
+    return "f32" if cache.dtype == torch.float32 else "bf16"
+
+
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -253,11 +294,18 @@ def phase_build():
             entry = line.split("'")[1]
             flash = re.search(r"(flash_(fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)ELb(\d)ELb(\d)ELb(\d)",
                               entry)
+            decode = re.search(r"decode_kernelILi(\d+)E(.+?)Lb(\d)ELb(\d)ELb(\d)E", entry)
             if flash:  # C's flags: softcap, window, extra; the backward's: window, softcap, extra
                 name, kind, E, *bits = flash.groups()
                 flags = ("softcap", "window") if kind == "fwd" else ("window", "softcap")
                 entry = f"{name} E {E} " + " ".join(
                     f"{f} {b}" for f, b in zip((*flags, "extra"), bits))
+            elif decode:  # D: q / cache types, then paged, softcap, verify
+                E, types, *bits = decode.groups()
+                types = {"ff": "f32", "fa": "f32 q, int8 cache"}.get(
+                    types, "bf16 q, int8 cache" if types.endswith("a") else "bf16")
+                entry = f"decode_kernel E {E} {types} " + " ".join(
+                    f"{f} {b}" for f, b in zip(("paged", "softcap", "verify"), bits))
             else:
                 entry = entry.split("_cu_")[-1][:70]
         elif "spill" in line:
@@ -440,6 +488,7 @@ def phase_kernels():
     phase_grouped_bwd(p3, gen, randn)
     phase_train_kernels(p3, gen, randn)
     phase_family_kernels(p3, gen, randn)
+    phase_verify_kernels(p3, gen, randn)
     phase_family_train_kernels(p3, gen, randn)
     phase_opset_kernels(p3, gen, randn)
     return p3.results
@@ -681,7 +730,7 @@ def phase_paged_kernels(p3, gen, randn):
                       "table, lengths 512..640, staged_n 9, layer 3", err, BF16_TOL,
                       BF16_TOL_WHY, device_ms(lambda: paged_decode_attention(*args, **dkw)),
                       device_ms(lambda: naive.naive_paged_decode_attention(*args, **dkw)),
-                      bound(moved, 4 * 128 * 32 * keys, "f32"), None, True)
+                      bound(moved, 4 * 128 * 32 * keys, "bf16"), None, True)
 
         # D, paged edge case: page 256, ragged lengths, an empty slot
         e_caches, e_scales = pools(2, 16, 256, mode)
@@ -768,11 +817,11 @@ ATTN_REL_WHY = ("|got - plain| / |plain| per 64-row query tile of each head (a s
 BIG_Q = 40.0
 
 
-def _decode_mode(head_dim, int8, E, q8, win, cap):
-    """The decode entries' modes (the keys of mode_launches): Mistral's
-    window at head dim 128, and any call at head dim 256 (Gemma-2's, with
-    the softcap)."""
-    return E == head_dim and q8 == int8 and (win or head_dim == 256)
+def _decode_mode(head_dim, int8, E, q8, win, cap, verify):
+    """The decode entries' single-token modes (the keys of mode_launches):
+    Mistral's window at head dim 128, and any call at head dim 256
+    (Gemma-2's, with the softcap)."""
+    return E == head_dim and q8 == int8 and (win or head_dim == 256) and not verify
 
 
 def _planted(name, what, err):
@@ -957,7 +1006,8 @@ def phase_family_kernels(p3, gen, randn):
         p3.report(name, case, tile_rel_err(o, want), ATTN_REL_TOL, ATTN_REL_WHY,
                   device_ms(lambda: op(*args, **dkw)),
                   device_ms(lambda: ref(*args, **dkw), n=3, reps=3),
-                  bound(moved, 4 * E * QH * (cache_rows + staged_rows), "f32"), None, main,
+                  bound(moved, 4 * E * QH * (cache_rows + staged_rows), _score_kind(caches[0])),
+                  None, main,
                   measure="tile relative error", abs_err=max_err(o, want))
         for what, over in faults:
             _planted(name, what, tile_rel_err(o, ref(*args, **dict(dkw, **over))))
@@ -1023,6 +1073,200 @@ def phase_family_kernels(p3, gen, randn):
                   bound(moved, 0, "f32"), None, not quantized)
         del cache_args, got, pairs
         torch.cuda.empty_cache()
+
+
+VERIFY_T = 5  # the engine's verify rows at spec_k 4: the last token and 4 drafts
+
+
+def _verify_visible(lens, n_st, T, window):
+    """The live rows of a verify run, counted as the T = 1 rows are: the
+    cache rows and staged rows some draft of a slot sees (each read once),
+    and the (draft, key) pairs the drafts see. Draft t sits at position
+    len + n_st - T + t; a slot of length 0 sees nothing."""
+    cache_rows = staged_rows = pairs = 0
+    for n in lens:
+        if n == 0:
+            continue
+        for t in range(T):
+            own = n_st - T + t  # the draft's staged row
+            lo_c = max(0, n + own + 1 - window) if window else 0
+            lo_s = max(0, own + 1 - window) if window else 0
+            pairs += max(0, n - lo_c) + own + 1 - lo_s
+        cache_rows += n - (max(0, n + n_st - T + 1 - window) if window else 0)
+        staged_rows += n_st - (max(0, n_st - T + 1 - window) if window else 0)
+    return cache_rows, staged_rows, pairs
+
+
+def _sdpa_verify_inputs(q, k_cache, v_cache, k_stage, v_stage, lengths, layer, n_st, window):
+    """F.scaled_dot_product_attention's inputs for a verify step: each
+    slot's live cache rows then its staged rows, joined and padded to the
+    longest slot, and the boolean mask of the same visibility (B, 1, T,
+    Lmax) (an idle slot's row sees nothing: SDPA gives NaN there, which
+    the yardstick's time does not mind)."""
+    B, _, T, E = q.shape
+    lens = lengths.tolist()
+    Lmax = max(lens) + n_st
+    KH = k_cache.shape[2]
+    kj = torch.zeros((B, KH, Lmax, E), dtype=q.dtype, device=q.device)
+    vj = torch.zeros_like(kj)
+    mask = torch.zeros((B, 1, T, Lmax), dtype=torch.bool, device=q.device)
+    t = torch.arange(T, device=q.device)[:, None]
+    for b, n in enumerate(lens):
+        kj[b, :, :n], vj[b, :, :n] = k_cache[layer, b, :, :n], v_cache[layer, b, :, :n]
+        kj[b, :, n:n + n_st] = k_stage[b, layer, :, :n_st]
+        vj[b, :, n:n + n_st] = v_stage[b, layer, :, :n_st]
+        if n == 0:
+            continue
+        pos = torch.arange(n + n_st, device=q.device)[None]  # key positions
+        qpos = n + n_st - T + t  # the drafts' positions
+        vis = pos <= qpos
+        if window:
+            vis &= pos > qpos - window
+        mask[b, 0, :, :n + n_st] = vis
+    return kj, vj, mask
+
+
+def flex_verify_ms(name, q, k, v, mask, softcap):
+    """The forward of torch's flex_attention (compiled; a yardstick the
+    port never calls) over a verify step's joined K/V: the score softcap
+    as its score_mod and `mask` (B, 1, T, L) as its block mask, so one
+    PyTorch call computes what D's verify mode computes with the softcap.
+    Returns (ms or None, flex's o)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        return mask[b, 0, qi, ki]
+
+    B, _, T, E = q.shape
+    graph, out = [], []
+
+    def flex_fwd():
+        if not graph:  # inside library_ms, which reports a refusal of this torch
+            block_mask = create_block_mask(mask_mod, B, None, T, k.shape[2], device=q.device)
+            fn = torch.compile(flex_attention, dynamic=False)
+            graph.append(lambda: fn(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                                    scale=E ** -0.5, enable_gqa=True))
+        out[:] = [graph[0]()]
+        return out[0]
+
+    ms = library_ms(f"{name} (flex_attention)", flex_fwd)
+    return ms, (out[0] if out else None)
+
+
+def phase_verify_kernels(p3, gen, randn):
+    """Kernel D's speculative-verify mode (T > 1) at the spec path's
+    shapes: Llama-3-8B (bf16 and int8 caches, T 5 at spec_k 4), Mistral-7B
+    past its window, Gemma-2-2B at head dim 256 with the softcap binding,
+    and G 8 at T 9, whose 72 rows split over three z-blocks; each against
+    the plain version per 64-row tile, with planted faults (the
+    intra-draft mask one staged row too wide, every draft cut at the first
+    draft's window edge, the last z-block's rows dropped) that must read
+    above the limit; and SDPA over the joined K/V with the same mask as
+    the yardstick (with the softcap, compiled flex_attention's forward)."""
+    import torch.nn.functional as F
+
+    from nnop_tpu_torch.ops import naive
+    from nnop_tpu_torch.ops.attention_decode import decode_attention
+
+    dev = torch.device("cuda")
+
+    def case(name, desc, E, QH, KH, lens, n_st, T, window, softcap, quantized, main=False,
+             q_scale=1.0, NL=2, layer=1, S=None, faults=(), lib=True):
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        S = S or -(-(max(lens) + 32) // 32) * 32
+        shape = (NL, B, KH, S, E)
+        if quantized:
+            caches = tuple(torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                         dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.01
+                           for _ in range(2))
+        else:
+            caches, scales = (randn(*shape), randn(*shape)), ()
+        stage = (randn(B, NL, KH, 32, E), randn(B, NL, KH, 32, E))
+        q = randn(B, QH, T, E, scale=q_scale)
+        args = (q, *caches, lengths, *scales)
+        kw = dict(k_stage=stage[0], v_stage=stage[1], staged_n=n_st, layer=layer, window=window,
+                  softcap=softcap)
+        before = decode_attention.verify_launches
+        o = decode_attention(*args, **kw)
+        check(decode_attention.verify_launches == before + 1, f"{name}: no verify launch counted")
+        check(o.shape == q.shape and bool((o[lengths == 0] == 0).all()),
+              f"{name}: shape {tuple(o.shape)}, or an idle slot not zero")
+        want = naive.naive_decode_attention(*args, **kw)
+        cache_rows, staged_rows, pairs = _verify_visible(lens, n_st, T, window)
+        moved = (KH * E * 2 * (cache_rows * caches[0].element_size() + staged_rows * 2)
+                 + 2 * nbytes(q) + nbytes(lengths) + (KH * 2 * 4 * cache_rows if quantized else 0))
+        library = None
+        if lib and not quantized:
+            kj, vj, mask = _sdpa_verify_inputs(q, *caches, *stage, lengths, layer, n_st, window)
+            library = library_ms(name, lambda: F.scaled_dot_product_attention(
+                q, kj, vj, attn_mask=mask, scale=E ** -0.5, enable_gqa=True))
+            if softcap is not None:  # SDPA has no softcap: information; flex_attention has
+                print(f"phase 3 {name} [{desc}]: SDPA without the softcap {library} ms")
+                library, flex_o = flex_verify_ms(name, q, kj, vj, mask, softcap)
+                if flex_o is not None:
+                    print(f"phase 3 {name} [{desc}]: flex_attention {library:.4f} ms, its o "
+                          f"against the plain version: tile relative error "
+                          f"{tile_rel_err(flex_o, want):.3e}")
+            del kj, vj, mask
+        p3.report(name, desc, tile_rel_err(o, want), ATTN_REL_TOL, ATTN_REL_WHY,
+                  device_ms(lambda: decode_attention(*args, **kw)),
+                  device_ms(lambda: naive.naive_decode_attention(*args, **kw), n=3, reps=3),
+                  bound(moved, 4 * E * QH * pairs, _score_kind(caches[0])), library, main,
+                  measure="tile relative error", abs_err=max_err(o, want))
+        for what, wrong in faults:
+            _planted(name, what, tile_rel_err(o, wrong(args, kw, want)))
+
+    def one_row_wide(args, kw, want):  # draft t sees staged row own + 1 too
+        return naive.naive_decode_attention(*args, **dict(kw, staged_n=kw["staged_n"] + 1))
+
+    def first_edge(args, kw, want):  # every draft cut at draft 0's window edge
+        q, T, n_st = args[0], args[0].shape[2], kw["staged_n"]
+        return torch.cat([naive.naive_decode_attention(
+            q[:, :, t:t + 1], *args[1:], **dict(kw, staged_n=n_st - T + t + 1,
+                                                window=kw["window"] + t)) for t in range(T)], 2)
+
+    def last_z_dropped(args, kw, want):  # G 8: a block holds 4 drafts
+        out = want.clone()
+        out[:, :, (want.shape[2] - 1) // 4 * 4:] = 0
+        return out
+
+    llama = [0, 1, 63, 64, 65, 300, 1100, 2100]
+    for quantized in (False, True):
+        mode = "int8" if quantized else "bf16"
+        case("decode_attention_verify" + ("_int8" if quantized else ""),
+             f"Llama-3-8B: q (8, 32, {VERIFY_T}, 128), {mode} cache (32, 8, 8, 2144, 128), "
+             f"lengths 0..2100, staged_n {VERIFY_T} (spec_k 4)", 128, 32, 8, llama, VERIFY_T,
+             VERIFY_T, None, None, quantized, main=True, NL=32, layer=3, S=2144,
+             faults=[("the intra-draft mask one staged row too wide", one_row_wide)])
+        torch.cuda.empty_cache()
+    shape_m = f"q (4, 32, {VERIFY_T}, 128), lengths 300/4500/6100/8000, staged_n {VERIFY_T}"
+    case("decode_attention_verify_window", f"Mistral: {shape_m}, bf16 cache, window 4096", 128,
+         32, 8, FAMILY_LENS, VERIFY_T, VERIFY_T, WINDOW, None, False, main=True)
+    case("decode_attention_verify_window", f"Mistral: {shape_m}, int8 cache, window 4096", 128,
+         32, 8, FAMILY_LENS, VERIFY_T, VERIFY_T, WINDOW, None, True)
+    case("decode_attention_verify_window", f"window 9 (the drafts' edges 1 key apart), "
+         f"q (4, 32, {VERIFY_T}, 128), lengths 0/1/65/200, staged_n 8", 128, 32, 8,
+         [0, 1, 65, 200], 8, VERIFY_T, 9, None, False, lib=False,
+         faults=[("every draft cut at the first draft's window edge", first_edge),
+                 ("the intra-draft mask one staged row too wide", one_row_wide)])
+    shape_g = f"q (4, 8, {VERIFY_T}, 256) x {BIG_Q:g}, KH 4, lengths 300/4500/6100/8000"
+    for quantized in (False, True):
+        case("decode_attention_verify_e256", f"Gemma-2: {shape_g}, "
+             f"{'int8' if quantized else 'bf16'} cache, softcap 50 (binding), window 4096", 256,
+             8, 4, FAMILY_LENS, VERIFY_T, VERIFY_T, WINDOW, 50.0, quantized, main=not quantized,
+             q_scale=BIG_Q)
+    case("decode_attention_verify_e256", f"Gemma-2: {shape_g}, bf16 cache, softcap 50, no window",
+         256, 8, 4, FAMILY_LENS, VERIFY_T, VERIFY_T, None, 50.0, False, q_scale=BIG_Q)
+    case("decode_attention_verify", "G 8 above the row bound: q (4, 32, 9, 128), KH 4, "
+         "lengths 0/1/65/2100, staged_n 9 (72 rows: three z-blocks of 4, 4 and 1 drafts)", 128,
+         32, 4, [0, 1, 65, 2100], 9, 9, None, None, False,
+         faults=[("the last z-block's rows dropped", last_z_dropped)])
+    torch.cuda.empty_cache()
 
 
 def _bwd_in_groups(q, k, v, o, lse, do, groups, **kw):
@@ -2036,6 +2280,34 @@ def _post(port, payload):
         return r.status, json.loads(r.read())
 
 
+def _serve(eng, prompts, max_tokens):
+    """Post `prompts` concurrently to an EngineServer over `eng`. Returns
+    (the answers' bodies, wall seconds, /v1/stats)."""
+    from nnop_tpu_torch.runtime.server import EngineServer
+
+    results = [None] * len(prompts)
+    srv = EngineServer(eng, port=0).start()
+    try:
+        def call(i):
+            results[i] = _post(srv.port, {"prompt": prompts[i], "max_tokens": max_tokens})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a request did not finish")
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.stop()
+    for res in results:
+        check(res is not None and res[0] == 200, f"answer {res}")
+    return [body for _, body in results], wall, stats
+
+
 def _cosine(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return (a @ b / (a.norm() * b.norm())).item()
@@ -2098,7 +2370,6 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul
     two differ (prompts of one prefill pass). Returns the counts."""
     from nnop_tpu_torch.models.llama import forward
     from nnop_tpu_torch.runtime.engine import Engine
-    from nnop_tpu_torch.runtime.server import EngineServer
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -2111,32 +2382,12 @@ def serve_and_check(tag, params, cfg, counters, engine_kw, prompts, refs, matmul
 
     for c in (*counters, *idle):
         c.reset()
-    results = [None] * len(prompts)
-    srv = EngineServer(eng, port=0).start()
-    try:
-        def call(i):
-            results[i] = _post(srv.port, {"prompt": prompts[i], "max_tokens": max_tokens})
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
-        check(not any(t.is_alive() for t in threads), "a request did not finish")
-        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/v1/stats", timeout=60) as r:
-            stats = json.loads(r.read())
-    finally:
-        srv.stop()
+    bodies, wall, stats = _serve(eng, prompts, max_tokens)
     launches = {c.name: c.read() for c in (*counters, *idle)}
 
     outs = []
-    for n, res in zip(lens, results):
-        check(res is not None, f"prompt {n}: no response")
-        status, body = res
+    for n, body in zip(lens, bodies):
         toks = body["tokens"]
-        check(status == 200, f"status {status}")
         check(len(toks) == max_tokens, f"prompt {n}: {len(toks)} tokens, expected {max_tokens}")
         check(all(0 <= t < cfg.vocab_size for t in toks), f"prompt {n}: token out of range")
         outs.append(toks)
@@ -2782,6 +3033,237 @@ def phase_hf_path(cfg, prompts, dev):
           f"({len(prompts)} prompts of {[len(p) for p in prompts]} tokens x 32)")
 
 
+SPEC_K, SPEC_NEW = 4, 64  # phase 14: drafts per verify step, tokens per request
+NEAR_TIE_REL = 1e-2  # a near tie: within 1e-2 x max|logit| of the plain forward's logits
+NEAR_TIE_WHY = ("a verify step's products run at M = B * T rows where plain decoding runs T steps at "
+                "M = B, so the two paths round their bf16 activations in different places; the "
+                "logits leave the lm_head product as bf16, so two tokens' logits differ by whole "
+                "ulps (2^-7 of the power of two below |logit|: 0.03125 from 4 to 8) and tie exactly "
+                "where they round alike")
+WIDE_TIE_ULPS, WIDE_TIES_MAX = 4, 1  # the rare parting past a near tie: its outer limit, its count
+WIDE_TIE_WHY = ("each path's logits differ from the plain forward's by ~0.6 ulp rms (cosine ~0.9998), "
+                "so the gap of two tokens moves by ~1.2 ulps rms between the engines and a parting "
+                "2 ulps apart happens now and then; a wrong token reads ~100 ulps below the top")
+
+
+def _ulp(x):
+    """One bf16 ulp at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+LOGPROB_TOL = 5e-2
+LOGPROB_WHY = ("the engine's logits differ from the plain forward's by ~0.6 ulp rms, one ulp being "
+               "0.031 for a logit between 4 and 8; 5e-2 is 1.6 ulps there. The limit cannot tell an "
+               "f32 log_softmax from a bf16-rounded one (up to 0.031 at |logprob| 8-16): the "
+               "first-token check below does")
+LOGPROB_OWN_TOL = 1e-5  # against log_softmax of the engine's own f32 first-token logits
+
+
+def span_prompts(rng, vocab, lens, span=64):
+    """Prompts of `lens` tokens, each one `span`-token random run repeated,
+    so that prompt lookup finds drafts in them."""
+    out = []
+    for n in lens:
+        run = rng.integers(0, vocab, span).tolist()
+        out.append((run * -(-n // span))[:n])
+    return out
+
+
+def first_verify_logits(params, cfg, engine_kw, prompts):
+    """Each prompt's first verify step, outside any served run: the
+    prompts admitted into a fresh Engine(spec_k=SPEC_K), then one verify
+    step of make_spec_chunk(with_logits=True) on its state and history.
+    Returns [(the prompt, its T input tokens, their logits (T, V) f32)]."""
+    from nnop_tpu_torch.runtime.engine import Engine, make_spec_chunk
+
+    eng = Engine(params, cfg, spec_k=SPEC_K, **engine_kw)
+    reqs = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    while eng.queue or eng._admitting:
+        eng._admit()
+    lens = eng.state.lengths.tolist()
+    _, _, logits = make_spec_chunk(cfg, 1, SPEC_K, with_logits=True)(
+        eng.params, eng.state, eng._history, eng._gen)
+    T = SPEC_K + 1
+    out = []
+    for slot, req in enumerate(eng.slots):
+        if req is not None:
+            n = lens[slot]
+            out.append((req.prompt, eng._history[slot, n:n + T].tolist(), logits[0, slot]))
+    check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} prompts admitted")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec(tag, params, cfg, engine_kw, prompts, verify, matmul=None):
+    """Phase 14a-c: each prompt's first verify step's T rows of logits
+    (first_verify_logits, outside the served runs) against forward(plain=
+    True) on the prompt and the T input tokens (cosine >= 0.99); then the
+    same prompts through EngineServer on the plain engine and on
+    Engine(spec_k=SPEC_K) over `params`, SPEC_NEW tokens each, with no
+    hook in the served runs. Checks: every answer's length and
+    vocabulary; the streams identical, or parted where the plain
+    forward's logits of the two tokens tie: within NEAR_TIE_REL of
+    max|logit|, or past it at most WIDE_TIES_MAX times a phase and
+    within WIDE_TIE_ULPS ulps; D's verify launches (`verify`, the Counter
+    of the path's verify mode) equal to layers x verify steps dispatched
+    and no T = 1 launch of D. Prints the partings by kind, the tokens
+    per verify step and both engines' tokens/s. Returns {the verify
+    entry: its launches}."""
+    from nnop_tpu_torch.models.llama import forward
+    from nnop_tpu_torch.ops.attention_decode import decode_attention
+    from nnop_tpu_torch.ops.kv_write import flush_staging
+    from nnop_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    T, n_tok = SPEC_K + 1, len(prompts) * SPEC_NEW
+
+    @torch.no_grad()
+    def plain(toks):
+        return forward(params, torch.tensor([toks], device=dev), cfg, plain=True,
+                       matmul=matmul)[0].float()
+
+    for prompt, toks, logits in first_verify_logits(params, cfg, engine_kw, prompts):
+        L = len(prompt)
+        ref = plain(prompt + toks)[L:L + T]
+        cos = min(_cosine(logits[t], ref[t]) for t in range(T))
+        print(f"phase {tag} verify logits: prompt of {L} tokens, first verify step's {T} rows "
+              f"against forward(plain=True): min cosine {cos:.6f} (>= 0.99 required), argmax "
+              f"{logits.argmax(-1).tolist()} plain {ref.argmax(-1).tolist()}")
+        check(cos >= 0.99 and bool(torch.isfinite(logits).all()), f"phase {tag}: cosine {cos}")
+
+    eng = Engine(params, cfg, **engine_kw)
+    want, plain_wall, _ = _serve(eng, prompts, SPEC_NEW)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(params, cfg, spec_k=SPEC_K, **engine_kw)
+    t1 = Counter("decode_attention T = 1", decode_attention, mode=lambda *key: not key[-1])
+    for c in (verify, t1):
+        c.reset()
+    flushes = flush_staging.launches
+    got, wall, stats = _serve(eng, prompts, SPEC_NEW)
+    n_verify, n_t1 = verify.read(), t1.read()
+    # each verify step dispatched ends with one flush of the staging (the
+    # engine's only flush: admission writes the cache directly); each
+    # dispatched chunk runs chunk_size of them
+    steps = flush_staging.launches - flushes
+    print(f"phase {tag} serve: {len(prompts)} requests (prompts of {[len(p) for p in prompts]} "
+          f"tokens, repeated 64-token runs) x {SPEC_NEW} new, Engine({engine_kw}, spec_k={SPEC_K}) "
+          f"through EngineServer; {n_tok} tokens in {wall:.2f} s wall = {n_tok / wall:.1f} tok/s, "
+          f"the plain engine {plain_wall:.2f} s = {n_tok / plain_wall:.1f} tok/s (wall with the "
+          f"prefill; observations, not claims); stats {stats}")
+    print(f"phase {tag} acceptance: {eng.spec_emitted} tokens over {eng.spec_verify_slots} "
+          f"metered verify steps = {eng.spec_emitted / eng.spec_verify_slots:.3f} tokens per "
+          f"verify step; {steps // eng.chunk_size} chunks of {eng.chunk_size} verify steps "
+          "dispatched")
+    print(f"phase {tag} launches: D verify {n_verify} (= {cfg.n_layers} layers x {steps} verify "
+          f"steps, counted by E's flushes, required), D T = 1 {n_t1} (0 required)")
+    check(n_verify == cfg.n_layers * steps and steps % eng.chunk_size == 0 and steps > 0,
+          f"phase {tag}: {n_verify} verify launches over {steps} flushes, not {cfg.n_layers} "
+          "layers x the verify steps of whole chunks")
+    check(n_t1 == 0, f"phase {tag}: {n_t1} launches of D at T = 1 during spec decoding")
+    kinds = {"identical": 0, "an exact tie": 0, "a near tie": 0, "a wide tie": 0}
+    for prompt, g, w in zip(prompts, got, want):
+        g, w = g["tokens"], w["tokens"]
+        check(len(g) == SPEC_NEW and all(0 <= t < cfg.vocab_size for t in g),
+              f"phase {tag}: {len(g)} tokens, or a token out of range")
+        part = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if part is None:
+            kinds["identical"] += 1
+            print(f"phase {tag} streams: prompt of {len(prompt)} tokens: spec identical to plain "
+                  f"over {SPEC_NEW} tokens")
+            continue
+        lg = plain(prompt + w[:part])[-1]
+        top = lg.abs().max().item()
+        gap, near, wide = (abs(lg[w[part]] - lg[g[part]]).item(), NEAR_TIE_REL * top,
+                           WIDE_TIE_ULPS * _ulp(top))
+        kind = "an exact tie" if gap == 0 else "a near tie" if gap <= near else "a wide tie"
+        kinds[kind] += 1
+        print(f"phase {tag} streams: prompt of {len(prompt)} tokens: parted at token {part} "
+              f"(plain {w[part]}, spec {g[part]}) at {kind}: the plain forward's logits there "
+              f"differ by {gap:.4f} = {gap / _ulp(top):.2f} bf16 ulps at max|logit| {top:.4f} "
+              f"(near tie <= {near:.4f}; wide <= {wide:.4f})")
+        check(gap <= wide, f"phase {tag}: the streams part at token {part}, {gap} apart: no tie")
+    print(f"phase {tag} partings: {kinds} over {len(prompts)} streams (a near tie is within "
+          f"{NEAR_TIE_REL:g} x max|logit|: {NEAR_TIE_WHY}; at most {WIDE_TIES_MAX} wide tie a "
+          f"phase, within {WIDE_TIE_ULPS} ulps: {WIDE_TIE_WHY})")
+    check(kinds["a wide tie"] <= WIDE_TIES_MAX, f"phase {tag}: {kinds['a wide tie']} wide ties")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {verify.name: n_verify}
+
+
+def phase_spec_sampled_and_logprobs(params, cfg, prompts, verify):
+    """Phase 14d: one sampled spec request (temperature 0.8, top_p 0.9)
+    runs to its length in the vocabulary; 14e: Engine(logprobs=True)
+    through EngineServer's "logprobs" field, each value against
+    log_softmax of forward(plain=True)'s f32 logits (LOGPROB_TOL), the
+    first against log_softmax of the engine's own f32 first-token logits
+    (LOGPROB_OWN_TOL, below what a bf16 logprob would read), and the
+    refusals of spec decoding with logprobs and with paged pools."""
+    from nnop_tpu_torch.models.llama import forward
+    from nnop_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    eng = Engine(params, cfg, max_batch=8, max_seq=2048, spec_k=SPEC_K, temperature=0.8,
+                 top_p=0.9, seed=SEED)
+    verify.reset()
+    req = eng.submit(prompts[0], max_new_tokens=SPEC_NEW)
+    eng.run()
+    check(req.done and len(req.out) == SPEC_NEW and all(0 <= t < cfg.vocab_size for t in req.out),
+          f"phase 14d: {len(req.out)} tokens, or a token out of range")
+    check(verify.read() > 0, "phase 14d: no verify launch")
+    print(f"phase 14d sampled: temperature 0.8, top_p 0.9, spec_k {SPEC_K}: {len(req.out)} "
+          f"tokens in the vocabulary, {eng.spec_emitted / eng.spec_verify_slots:.3f} tokens per "
+          f"verify step, {verify.read()} verify launches")
+    del eng
+    gc.collect()
+    eng = Engine(params, cfg, max_batch=8, max_seq=2048, logprobs=True)
+    bodies, wall, _ = _serve(eng, prompts[:2], SPEC_NEW)
+    worst, own_worst, bf16_least = 0.0, 0.0, math.inf
+    for prompt, body in zip(prompts, bodies):
+        toks, lps = body["tokens"], body["logprobs"]
+        check(len(lps) == len(toks) == SPEC_NEW, f"phase 14e: {len(lps)} logprobs, "
+              f"{len(toks)} tokens")
+        with torch.no_grad():
+            logits = forward(params, torch.tensor([prompt + toks[:-1]], device=dev), cfg,
+                             plain=True)[0, len(prompt) - 1:].float()
+            own = torch.log_softmax(first_logits(eng, prompt).float(), -1)
+        ref = torch.log_softmax(logits, -1).gather(1, torch.tensor(toks, device=dev)[:, None])
+        diff = (torch.tensor(lps, device=dev) - ref[:, 0]).abs().max().item()
+        worst = max(worst, diff)
+        # the first token's logprob against log_softmax of the engine's own
+        # first-token logits: f32 reads ~0, a bf16-rounded logprob or a
+        # bf16 log_softmax of the same logits reads its rounding
+        own_diff = abs(lps[0] - own[toks[0]].item())
+        bf16_diff = min(abs(own[toks[0]].bfloat16().item() - own[toks[0]].item()),
+                        abs(torch.log_softmax(first_logits(eng, prompt).bfloat16(), -1)[
+                            toks[0]].item() - own[toks[0]].item()))
+        own_worst, bf16_least = max(own_worst, own_diff), min(bf16_least, bf16_diff)
+        print(f"phase 14e logprobs: prompt of {len(prompt)} tokens: {len(lps)} logprobs (first "
+              f"{lps[0]:.4f}, plain {ref[0, 0].item():.4f}); max |engine - plain| {diff:.3e} "
+              f"(tol {LOGPROB_TOL:g}: {LOGPROB_WHY}); the first against log_softmax of the "
+              f"engine's own f32 logits {own_diff:.3e} (tol {LOGPROB_OWN_TOL:g}), a bf16 "
+              f"logprob there would read >= {bf16_diff:.3e}")
+    check(worst <= LOGPROB_TOL, f"phase 14e: logprobs differ by {worst}")
+    check(own_worst <= LOGPROB_OWN_TOL < bf16_least,
+          f"phase 14e: the first logprob {own_worst} from the engine's own f32 log_softmax, or "
+          f"the check cannot tell a bf16 one ({bf16_least})")
+    del eng
+    gc.collect()
+    for kw in (dict(spec_k=2, logprobs=True), dict(spec_k=2, paged=True)):
+        try:
+            Engine(params, cfg, max_batch=8, max_seq=2048, **kw)
+        except ValueError as e:
+            print(f"phase 14e refusal: Engine({kw}) raised ValueError: {e}")
+        else:
+            check(False, f"phase 14e: Engine({kw}) did not raise")
+    torch.cuda.empty_cache()
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -2897,6 +3379,17 @@ def main():
            for pre, fn, rep in (("decode_attention", decode_attention, decode_rep),
                                 ("paged_decode_attention", paged_decode_attention, paged_rep))
            for kind in ("window", "e256") for sfx in ("", "_int8")},
+        # the speculative-verify mode of D (T > 1; phase 14): 8B bf16 (14a),
+        # int8 (14b), Mistral's window (no phase serves it with spec_k),
+        # Gemma-2's head dim 256 with the softcap (14c)
+        **{f"decode_attention_verify{sfx}": (Counter(f"decode_attention_verify{sfx}",
+                                                      decode_attention, mode=mode), "cuda",
+                                              decode_src, decode_rep)
+           for sfx, mode in (
+               ("", lambda E, q8, win, cap, v: v and E == 128 and not q8 and not win),
+               ("_int8", lambda E, q8, win, cap, v: v and E == 128 and q8),
+               ("_window", lambda E, q8, win, cap, v: v and E == 128 and win and not q8),
+               ("_e256", lambda E, q8, win, cap, v: v and E == 256))},
         "flush_staging_e256": (Counter("flush_staging_e256", flush_staging,
                                        mode=lambda E, q8: E == 256 and not q8), "cuda", flush_src,
                                f"{flush_rep}:266"),
@@ -2969,10 +3462,19 @@ def main():
     launches.update(serve_and_check("phase 4", params, cfg, counters(
         "rms_norm", "llama_rope", "flash_fwd", "decode_attention", "flush_staging"), linear,
         prompts, [(1, 0), (3, 0)]))
+    done("4")
+    # 14a, d, e on phase 4's weights: speculative decoding (prompts of
+    #     repeated 64-token runs), a sampled spec request, logprobs
+    spec_rng = np.random.default_rng(SEED + 14)  # leaves the other phases' prompts as they were
+    spec_prompts = span_prompts(spec_rng, cfg.vocab_size, (200, 450, 700, 1100))
+    record(phase_spec("14a", params, cfg, linear, spec_prompts,
+                      entries["decode_attention_verify"][0]))
+    phase_spec_sampled_and_logprobs(params, cfg, spec_prompts, entries[
+        "decode_attention_verify"][0])
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    done("4")
+    done("14a, d, e")
 
     # 5. int8 weights (W8A8 prefill, weight-only decode), int8 cache
     gen.manual_seed(SEED)
@@ -2989,6 +3491,12 @@ def main():
         matmul=w8a8_plain)
     record(counts)
     done("5")
+    # 14b: speculative decoding on phase 5's weights and the int8 cache;
+    #      the verify step's products (M = B * T < 256 rows) are weight-only
+    record(phase_spec("14b", params, cfg, dict(linear, quantized_kv=True, w8a8=True),
+                      spec_prompts, entries["decode_attention_verify_int8"][0],
+                      matmul=functools.partial(qmatmul, plain=True)))
+    done("14b")
 
     # 7. the paged deployment (scripts/bench_engine.py --paged) on the same
     #    int8 weights: 32 requests of 512 tokens; requests 16-31 repeat the
@@ -3150,10 +3658,15 @@ def main():
     record(counts)
     print(f"phase 11c memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           "(max_memory_allocated)")
+    done("11c")
+    # 14c: speculative decoding on 11c's weights, prompts of its lengths
+    record(phase_spec("14c", params, gcfg, fam_linear,
+                      span_prompts(spec_rng, gcfg.vocab_size, fam_lens),
+                      entries["decode_attention_verify_e256"][0]))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    done("11c")
+    done("14c")
     # 11d. --hf-path: a 2-layer Mistral-7B directory, loaded and served
     phase_hf_path(LlamaConfig.mistral_7b(n_layers=2, max_seq_len=32768), m_prompts[:2], dev)
     gc.collect()

@@ -2,23 +2,24 @@
 
 `decode_attention` wraps csrc/decode_attn.cu, which replaces
 nnop_tpu/ops/attention_decode.py:decode_attention (`_decode_kernel`) for
-a floating-point or int8 cache and one query token per sequence, with the
-sliding window and the score softcap, at head dim 128 or 256. See the
-kernel source for what bounds it and how. The int8 mode, the window and
-the softcap have their own launch counts (`decode_attention.int8_launches`,
-`.window_launches`, `.softcap_launches`) beside `launches`, and
-`.mode_launches` counts them by (head dim, int8, window, softcap). The
-same kernel body serves a paged pool (ops/attention_decode_paged.py).
-
-Multi-token speculative verify (T > 1) is not ported yet and raises
-NotImplementedError.
+a floating-point or int8 cache, with the sliding window and the score
+softcap, at head dim 128 or 256: one query token per sequence, or T > 1,
+the speculative-verify mode (the T draft tokens are the last T staged
+ones; the kernel's verify mode holds all T * G rows of a KV head in one
+block). See the kernel source for what bounds it and how. The int8 mode,
+the window, the softcap and the verify mode have their own launch counts
+(`decode_attention.int8_launches`, `.window_launches`,
+`.softcap_launches`, `.verify_launches`) beside `launches`, and
+`.mode_launches` counts them by (head dim, int8, window, softcap,
+verify). The same kernel body serves a paged pool
+(ops/attention_decode_paged.py), single-token.
 """
 
 from __future__ import annotations
 
 import torch
 
-from nnop_tpu_torch.ops.naive import naive_decode_attention
+from nnop_tpu_torch.ops.naive import check_draft_rows, naive_decode_attention
 from nnop_tpu_torch.utils.build import check_launch, load_library
 from nnop_tpu_torch.utils.platform import check_cuda_operand
 
@@ -32,9 +33,10 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
                      scale: float | None = None, k_stage=None, v_stage=None,
                      staged_n: int | None = None, layer: int | None = None,
                      window: int | None = None, softcap: float | None = None):
-    """Single-token decode attention over a floating-point or int8 KV cache.
+    """Decode attention of T query tokens per sequence over a floating-point
+    or int8 KV cache.
 
-    q: (B, QH, 1, E). k_cache/v_cache: (B, KH, S, E), or STACKED
+    q: (B, QH, T, E). k_cache/v_cache: (B, KH, S, E), or STACKED
     (n_layers, B, KH, S, E) with the static `layer` index (the engine's
     layout; no per-layer copy is made). lengths: (B,) int32 — valid cache
     prefix per sequence (flushed tokens only). k_stage/v_stage: optional
@@ -43,17 +45,20 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     lengths[b] + staged_n); staged_n is uniform across the batch. A slot
     with lengths[b] == 0 sees nothing and gets zeros. An int8 cache comes
     with per-token f32 scales k_scale/v_scale of the cache's shape without
-    E. Returns (B, QH, 1, E) in q.dtype.
+    E. Returns (B, QH, T, E) in q.dtype.
+
+    T > 1 is the speculative verify: the T query tokens are the last T
+    staged ones (positions lengths[b] + staged_n - T + t), so it needs the
+    staging and T <= staged_n (else ValueError); query t sees the staged
+    rows up to its own, and the window is cut at each query's own edge.
     """
     quantized = k_cache.dtype == torch.int8
     if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale come with an int8 cache, and only with one")
     B, QH, T, E = q.shape
-    if T != 1:
-        raise NotImplementedError("decode_attention: multi-token verify is not ported yet")
+    staged_n = check_draft_rows(T, k_stage, staged_n)
     if scale is None:
         scale = 1.0 / (E**0.5)
-    staged_n = int(staged_n or 0) if k_stage is not None else 0
     if q.device.type == "cpu":
         return naive_decode_attention(
             q, k_cache, v_cache, lengths, k_scale, v_scale, scale=scale, k_stage=k_stage,
@@ -63,19 +68,21 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *
     o = launch_decode("decode_attention", q, k_cache, v_cache, lengths, k_scale, v_scale, None,
                       scale=scale, k_stage=k_stage, v_stage=v_stage, staged_n=staged_n,
                       layer=layer, window=window, softcap=softcap)
-    count_launch(decode_attention, q.shape[-1], quantized, window, softcap)
+    count_launch(decode_attention, q.shape[-1], quantized, window, softcap, T > 1)
     return o
 
 
-def count_launch(op, E, quantized, window, softcap):
+def count_launch(op, E, quantized, window, softcap, verify=False):
     """Add one launch of kernel D to `op`'s counts: all launches; those of
-    the int8 mode, with a window and with a softcap; and those of its mode
-    (E, int8, window, softcap) in `op.mode_launches`."""
+    the int8 mode, with a window, with a softcap and of the verify mode
+    (T > 1); and those of its mode (E, int8, window, softcap, verify) in
+    `op.mode_launches`."""
     op.launches += 1
     op.int8_launches += quantized
     op.window_launches += window is not None
     op.softcap_launches += softcap is not None
-    mode = (E, quantized, window is not None, softcap is not None)
+    op.verify_launches += verify
+    mode = (E, quantized, window is not None, softcap is not None, verify)
     op.mode_launches[mode] = op.mode_launches.get(mode, 0) + 1
 
 
@@ -83,10 +90,10 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
                   k_stage, v_stage, staged_n, layer, window, softcap):
     """Check the operands of kernel D and launch it on CUDA tensors: over
     a linear cache (page_table None), or over page pools (n_pages, KH,
-    page, E) through page_table (B, max_pages) int32. `name` is the
-    calling op's, for its errors. Returns o (B, QH, 1, E)."""
+    page, E) through page_table (B, max_pages) int32, single-token. `name`
+    is the calling op's, for its errors. Returns o (B, QH, T, E)."""
     quantized = k_scale is not None
-    B, QH, _, E = q.shape
+    B, QH, T, E = q.shape
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
@@ -141,7 +148,7 @@ def launch_decode(name, q, k_cache, v_cache, lengths, k_scale, v_scale, page_tab
         k_stage.data_ptr() if k_stage is not None else None,
         v_stage.data_ptr() if v_stage is not None else None,
         lengths.data_ptr(), page_table.data_ptr() if paged else None, o.data_ptr(), B, QH, KH,
-        S, E, n_blocks, page_table.shape[1] if paged else 0, n_layers, int(layer), W, staged_n,
+        S, E, T, n_blocks, page_table.shape[1] if paged else 0, n_layers, int(layer), W, staged_n,
         float(scale), int(window or 0), float(softcap or 0.0), int(q.dtype == torch.float32),
         int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -154,4 +161,5 @@ decode_attention.launches = 0
 decode_attention.int8_launches = 0
 decode_attention.window_launches = 0
 decode_attention.softcap_launches = 0
+decode_attention.verify_launches = 0
 decode_attention.mode_launches = {}

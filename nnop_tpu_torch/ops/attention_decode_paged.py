@@ -10,7 +10,9 @@ first live row) and the score softcap; see the kernel source for what
 bounds it. The int8 mode, the window and the softcap have their own
 launch counts (`paged_decode_attention.int8_launches`, `.window_launches`,
 `.softcap_launches`) beside `launches`, and `.mode_launches` counts them
-by (head dim, int8, window, softcap).
+by (head dim, int8, window, softcap, verify), verify always False: the
+paged op is single-token, as the reference's is, and q with T > 1 raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def paged_decode_attention(q, pool_k, pool_v, page_table, lengths, pool_k_scale=
         raise ValueError("pool scales come with an int8 pool, and only with one")
     B, QH, T, E = q.shape
     if T != 1:
-        raise NotImplementedError("paged_decode_attention: multi-token verify is not ported yet")
+        # the reference's paged op reads one query token (its engine
+        # refuses speculative decoding with paged pools)
+        raise ValueError(f"paged_decode_attention is single-token: q has T = {T}, expected 1")
     if scale is None:
         scale = 1.0 / (E**0.5)
     staged_n = int(staged_n or 0) if k_stage is not None else 0
@@ -64,4 +68,5 @@ paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
 paged_decode_attention.window_launches = 0
 paged_decode_attention.softcap_launches = 0
+paged_decode_attention.verify_launches = 0
 paged_decode_attention.mode_launches = {}

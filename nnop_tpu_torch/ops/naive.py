@@ -260,16 +260,22 @@ def naive_decode_attention(
     window: int | None = None,
     softcap: float | None = None,
 ):
-    """One query token per sequence over a floating-point or int8 cache
+    """T query tokens per sequence over a floating-point or int8 cache
     plus the bf16 staging buffer (nnop_tpu/ops/attention_decode.py
     semantics).
 
-    q: (B, QH, 1, E). Caches (B, KH, S, E), or stacked
+    q: (B, QH, T, E). Caches (B, KH, S, E), or stacked
     (n_layers, B, KH, S, E) with `layer`. lengths (B,) counts FLUSHED
     tokens: cache rows < lengths[b] are live. Staging (B, KH, W, E) (or
     (B, n_layers, KH, W, E) with `layer`) holds the `staged_n` newest
     tokens, at positions lengths[b] + j; it is masked for a slot with
-    lengths[b] == 0. Returns (B, QH, 1, E).
+    lengths[b] == 0. Returns (B, QH, T, E).
+
+    T > 1 is the speculative-verify mode: the T query tokens are the last
+    T staged ones, so query t sits at position lengths[b] + staged_n - T
+    + t. Every query sees the live cache rows (cut per query by the
+    window); staged row w is visible to query t iff w <= staged_n - T + t
+    (the intra-draft causal mask). It needs the staging and T <= staged_n.
 
     A linear cache is a pool whose page is a slot's whole row, so this is
     naive_paged_decode_attention with slot b's one page b: the cache part
@@ -304,15 +310,18 @@ def naive_paged_decode_attention(
     window: int | None = None,
     softcap: float | None = None,
 ):
-    """One query token per sequence over a page pool plus the bf16
-    staging buffer (nnop_tpu/ops/attention_decode_paged.py semantics).
+    """Decode attention over a page pool plus the bf16 staging buffer
+    (nnop_tpu/ops/attention_decode_paged.py semantics; with T > 1 the
+    verify mode of nnop_tpu/ops/attention_decode.py, which
+    naive_decode_attention reaches through a one-page-per-slot table).
 
-    q: (B, QH, 1, E). Pools (n_pages, KH, page, E), or stacked
+    q: (B, QH, T, E). Pools (n_pages, KH, page, E), or stacked
     (n_layers, n_pages, KH, page, E) with `layer`; page_table (B,
     max_pages) holds each slot's page ids in order, and only the entries
     below ceil(lengths[b] / page) are read. lengths and staging are as in
-    naive_decode_attention; an int8 pool comes with per-token f32 scales
-    of the pool's shape without E.
+    naive_decode_attention, and so is the mask of the T query tokens; an
+    int8 pool comes with per-token f32 scales of the pool's shape without
+    E.
 
     The steps are the TPU kernel's: one online-softmax step per page, then
     one for the staging rows. An fp pool keeps q and P unrounded in the
@@ -323,8 +332,7 @@ def naive_paged_decode_attention(
     sees no key gets zeros.
     """
     B, QH, T, E = q.shape
-    if T != 1:
-        raise NotImplementedError("multi-token (speculative) decode not ported yet")
+    staged_n = check_draft_rows(T, k_stage, staged_n)
     pk = pool_k[layer] if layer is not None else pool_k
     pv = pool_v[layer] if layer is not None else pool_v
     quantized = pk.dtype == torch.int8
@@ -337,18 +345,22 @@ def naive_paged_decode_attention(
         vsc = v_scale[layer] if layer is not None else v_scale
     lens = lengths.to(q.device).long()
     table = page_table.to(q.device).long()
-    qg = q.reshape(B, KH, G, E)
+    R = G * T  # query rows per KV head, row r = g * T + t
+    qg = q.reshape(B, KH, R, E)
     q_c = qg.to(torch.bfloat16).float() if quantized else qg.float()
+    # each row's draft index t, and the staged row of its own position
+    row_t = torch.arange(T, device=q.device).repeat(G)
+    own = staged_n - T + row_t  # (R,)
 
     def softcapped(s):
         return s if softcap is None else softcap * torch.tanh(s / softcap)
 
-    m = torch.full((B, KH, G, 1), MASK_VALUE, device=q.device)
-    l = torch.zeros((B, KH, G, 1), device=q.device)
-    o = torch.zeros((B, KH, G, E), device=q.device)
+    m = torch.full((B, KH, R, 1), MASK_VALUE, device=q.device)
+    l = torch.zeros((B, KH, R, 1), device=q.device)
+    o = torch.zeros((B, KH, R, E), device=q.device)
 
     def online_step(s, mask, p_of, v):
-        """One online-softmax step: s, mask (B, KH, G, C); p_of(p) is P as
+        """One online-softmax step: s, mask (B, KH, R, C); p_of(p) is P as
         it enters the PV product; v (B, KH, C, E)."""
         nonlocal m, l, o
         s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
@@ -368,10 +380,11 @@ def naive_paged_decode_attention(
         if quantized:
             s = s * ksc[ids].float()[:, :, None, :]
         pos = j * P + torch.arange(P, device=q.device)
-        mask = pos[None] < lens[:, None]
+        mask = (pos[None] < lens[:, None])[:, None]  # (B, 1, P)
         if window is not None:
-            # the query sits at position lengths + staged_n - 1
-            mask = mask & (pos[None] >= (lens + staged_n - window)[:, None])
+            # query t sits at position lengths + staged_n - T + t
+            lo = lens[:, None] + own[None] + 1 - window  # (B, R)
+            mask = mask & (pos[None, None] >= lo[:, :, None])
         if quantized:
             vj = vsc[ids].float()[:, :, None, :]
 
@@ -382,20 +395,35 @@ def naive_paged_decode_attention(
             def p_of(p):
                 return p.to(pk.dtype).float()
 
-        online_step(softcapped(s), mask[:, None, None, :].expand(B, KH, G, P), p_of, pv[ids])
+        online_step(softcapped(s), mask[:, None].expand(B, KH, R, P), p_of, pv[ids])
     if k_stage is not None:
         ks = k_stage[:, layer] if layer is not None else k_stage
         vs = v_stage[:, layer] if layer is not None else v_stage
         W = ks.shape[2]
         s = torch.einsum("bkge,bkwe->bkgw", qg.to(torch.bfloat16).float(), ks.float()) * scale
         w = torch.arange(W, device=q.device)
-        mask = (w[None] < staged_n) & (lens[:, None] > 0)
+        # staged row w is at position lengths + w: causal within the drafts
+        mask = w[None] <= own[:, None]  # (R, W)
         if window is not None:
-            mask = mask & (w[None] >= staged_n - window)
-        online_step(softcapped(s), mask[:, None, None, :].expand(B, KH, G, W),
+            mask = mask & (w[None] >= own[:, None] + 1 - window)
+        mask = mask[None] & (lens > 0)[:, None, None]  # (B, R, W)
+        online_step(softcapped(s), mask[:, None].expand(B, KH, R, W),
                     lambda p: p.to(torch.bfloat16).float(), vs)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    return (o / l).to(q.dtype).reshape(B, QH, 1, E)
+    return (o / l).to(q.dtype).reshape(B, QH, T, E)
+
+
+def check_draft_rows(T: int, k_stage, staged_n) -> int:
+    """The staged_n that decode attention runs with (0 without staging),
+    after checking T query tokens against it: T > 1 (the speculative
+    verify) needs the staging and T <= staged_n, as the queries are the
+    last T staged tokens."""
+    staged_n = int(staged_n or 0) if k_stage is not None else 0
+    if T > 1 and (k_stage is None or not T <= staged_n):
+        have = f"staged_n {staged_n}" if k_stage is not None else "no staging"
+        raise ValueError(f"multi-token decode (speculative verify) needs the {T} draft tokens' "
+                         f"K/V as the last staged rows (staged_n >= T); got {have}")
+    return staged_n
 
 
 def _quantize_rows(x):

@@ -39,8 +39,17 @@ token:
   requests (refcounted): a hit reads the shared K/V back and prefills only
   the remainder.
 
-Speculative decoding and per-token logprobs are not ported yet: asking
-for them raises NotImplementedError.
+* `spec_k` (linear caches): speculative decoding. `make_spec_chunk` runs
+  `chunk_size` verify steps per dispatch; each drafts `spec_k` tokens by
+  prompt lookup (`ngram_draft`) from a token history on the device, runs
+  ONE forward over T = spec_k + 1 tokens whose K/V go to staging rows [0,
+  T) (decode attention's verify mode, kernel D with T > 1), accepts the
+  longest argmax-matching prefix (greedy) or rejection-samples
+  (`spec_accept`), and flushes; the staging is the rollback, as rejected
+  rows land past the new length. Greedy streams equal plain decoding's.
+* `logprobs`: each emitted token's log-probability under the f32 logits,
+  in `Request.logprobs` and the server's answer (not with `spec_k`, as
+  in the JAX engine).
 """
 
 from __future__ import annotations
@@ -256,6 +265,37 @@ def sample_tokens(logits, generator: Optional[torch.Generator], temperature: flo
     return (probs / race).argmax(dim=-1)
 
 
+def spec_accept(fl, drafts, generator: Optional[torch.Generator]):
+    """Leviathan-style rejection-sampling verify for deterministic drafts
+    (nnop_tpu/runtime/engine.py:spec_accept).
+
+    fl: (B, T, V) filtered logits at each of the T = k + 1 positions
+    (softmax(fl[:, i]) is the target distribution of the token after input
+    i); drafts: (B, k) int64. Draft i is accepted with probability
+    p_i(d_i); on the first rejection the replacement is drawn from p_c
+    with d_c removed, and when all k are accepted the bonus token from
+    p_k. The emitted tokens follow sequential sampling from p exactly;
+    the drafts change only how many come per step. Draws from `generator`
+    on the device, with no host sync.
+
+    Returns (c (B,) int64 accepted-draft counts, final (B,) int64 the
+    replacement or bonus token).
+    """
+    B, T, V = fl.shape
+    k = T - 1
+    p = torch.softmax(fl, dim=-1)
+    u = torch.rand((B, k), generator=generator, device=fl.device)
+    p_draft = p[:, :k].gather(2, drafts[..., None])[..., 0]  # (B, k)
+    c = (u < p_draft).long().cumprod(dim=1).sum(dim=1)  # the first rejection
+    fl_c = fl.gather(1, c[:, None, None].expand(B, 1, V))[:, 0]  # (B, V)
+    d_c = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1).gather(1, c[:, None])
+    # the residual: the rejected draft's mass removed (only when c < k)
+    rejected = torch.zeros_like(fl_c, dtype=torch.bool).scatter_(1, d_c, True) & (c < k)[:, None]
+    probs = torch.softmax(fl_c.masked_fill(rejected, -math.inf), dim=-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return c, (probs / race).argmax(dim=-1)
+
+
 def _cat_columns(ws):
     """Concatenate weights along N, their last axis: (K, N_i) projections
     or stacked (E, K, N_i) experts, as plain tensors, QTensors (values and
@@ -305,13 +345,15 @@ def fuse_decode_weights(params, *, in_place: bool = False):
 
 def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
                       top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
-                      paged: bool = False, page_size: int = 0):
+                      paged: bool = False, page_size: int = 0, logprobs: bool = False):
     """The engine fast path: `chunk` decode steps per call.
 
     Returns chunk_fn(params, state, generator) -> tokens (chunk, B) int64,
-    updating `state` in place: staging rows, the flushed caches (pools
-    through `state.page_table` when `paged`), lengths (+chunk for live
-    slots) and last_token. Takes fused params (fuse_decode_weights).
+    or with `logprobs` (tokens, lps (chunk, B) f32), each sampled token's
+    log_softmax of its step's f32 logits; updating `state` in place:
+    staging rows, the flushed caches (pools through `state.page_table`
+    when `paged`), lengths (+chunk for live slots) and last_token. Takes
+    fused params (fuse_decode_weights).
     """
     rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
 
@@ -319,6 +361,7 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
     def chunk_fn(params, state: EngineState, generator):
         toks = torch.empty((chunk, state.lengths.shape[0]), dtype=torch.int64,
                            device=state.lengths.device)
+        lps = torch.empty(toks.shape, dtype=torch.float32, device=toks.device) if logprobs else None
         last = state.last_token
         for i in range(chunk):
 
@@ -341,6 +384,8 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
             logits = _forward_layers(params, cfg, x, cos, sin, attend)[:, 0]
             last = sample_tokens(logits, generator, temperature, top_k, top_p, min_p)
             toks[i] = last
+            if logprobs:
+                lps[i] = torch.log_softmax(logits, dim=-1).gather(1, last[:, None])[:, 0]
         if paged:
             flush_staging_paged(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
                                 state.v_stage, state.lengths, state.page_table, page_size)
@@ -349,7 +394,114 @@ def make_decode_chunk(cfg: LlamaConfig, chunk: int, temperature: float = 0.0,
                           state.v_stage, state.lengths)
         state.lengths += (state.lengths > 0).to(torch.int32) * chunk
         state.last_token = last
-        return toks
+        return (toks, lps) if logprobs else toks
+
+    return chunk_fn
+
+
+def ngram_draft(history, vlen, k: int):
+    """Prompt-lookup drafting (nnop_tpu/runtime/engine.py:ngram_draft):
+    continue the most recent earlier occurrence of the trailing bigram.
+
+    history: (B, S) int32 tokens, positions [0, vlen) valid; vlen: (B,)
+    int32. Returns (B, k) int64 drafts; where no earlier occurrence exists,
+    or its continuation runs past vlen, the last token repeated (the verify
+    then rejects: drafts change only how many tokens come per step). Torch
+    ops on the device, no host read.
+    """
+    B, S = history.shape
+    h = history.long()
+    vlen = vlen.long()[:, None]
+    pos = torch.arange(S, device=h.device)[None]
+    a = h.gather(1, (vlen - 2).clamp(min=0))
+    b = h.gather(1, (vlen - 1).clamp(min=0))
+    prev = torch.roll(h, 1, dims=1)  # prev[:, p] = h[:, p - 1]
+    match = (prev == a) & (h == b) & (pos >= 1) & (pos < vlen - 1)
+    idx = torch.where(match, pos, -1).amax(dim=1, keepdim=True)  # the most recent match
+    dpos = (idx + 1).clamp(0, S - k) + torch.arange(k, device=h.device)[None]
+    ok = (idx >= 0) & (dpos < vlen)
+    return torch.where(ok, h.gather(1, dpos), b)
+
+
+def make_spec_chunk(cfg: LlamaConfig, n_steps: int, spec_k: int, temperature: float = 0.0,
+                    top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+                    with_logits: bool = False):
+    """Speculative decode chunk (nnop_tpu/runtime/engine.py:make_spec_chunk):
+    `n_steps` verify steps per call on a linear cache. Each step drafts
+    `spec_k` tokens (ngram_draft over the history), writes [last, d_1..d_k]
+    to the history and runs ONE forward over those T = spec_k + 1 tokens:
+    each layer writes their K/V to staging rows [0, T) and decode attention
+    runs its verify mode (staged_n = T, the intra-draft causal mask).
+    Greedy accepts the longest argmax-matching prefix; sampling goes
+    through spec_accept on the filtered logits. The staging then flushes
+    at the old lengths, which advance by (c + 1) for live slots: rejected
+    rows land past the new length and the next flush overwrites them.
+
+    Returns chunk_fn(params, state, history, generator) -> (emitted
+    (n_steps, B, T) int64, counts (n_steps, B) int32) on the device, with
+    `state` and `history` ((B, S) int32) updated in place; with_logits
+    adds each step's verify logits (n_steps, B, T, V) f32 as a third
+    output (the engine never asks for them). Raises ValueError when T
+    exceeds the staging (STAGE_W rows).
+    """
+    T = spec_k + 1
+    if T > STAGE_W:
+        raise ValueError(f"spec_k + 1 must be <= STAGE_W ({STAGE_W})")
+    rope = RotaryEmbedding(cfg.head_dim, cfg.rope_base, scaling=cfg.rope_scaling)
+
+    @torch.no_grad()
+    def chunk_fn(params, state: EngineState, history, generator):
+        B = state.lengths.shape[0]
+        dev = state.lengths.device
+        jT = torch.arange(T, device=dev)
+        out_toks = torch.empty((n_steps, B, T), dtype=torch.int64, device=dev)
+        out_counts = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+        out_logits = []
+        for i in range(n_steps):
+            lens = state.lengths.long()
+            active = lens > 0
+            history.scatter_(1, lens[:, None], state.last_token[:, None].to(history.dtype))
+            drafts = ngram_draft(history, state.lengths + 1, spec_k)
+            tokens_in = torch.cat([state.last_token[:, None], drafts], dim=1)  # (B, T)
+            history.scatter_(1, lens[:, None] + jT[None], tokens_in.to(history.dtype))
+
+            def attend(li, q, k, v):
+                # the T tokens' K/V (B, KH, T, E) -> staging rows [0, T) of layer li
+                state.k_stage[:, li, :, :T] = k
+                state.v_stage[:, li, :, :T] = v
+                return decode_attention(q, state.k, state.v, state.lengths, state.k_scale,
+                                        state.v_scale, k_stage=state.k_stage,
+                                        v_stage=state.v_stage, staged_n=T, layer=li,
+                                        window=cfg.layer_window(li), softcap=cfg.attn_softcap,
+                                        scale=cfg.attn_scale)
+
+            cos, sin = rope(lens[:, None] + jT[None])
+            logits = _forward_layers(params, cfg, _embed_tokens(params, cfg, tokens_in), cos,
+                                     sin, attend)  # (B, T, V)
+            if with_logits:
+                out_logits.append(logits.float())
+            if temperature <= 0.0:
+                m = logits.argmax(dim=-1)
+                c = (drafts == m[:, :spec_k]).long().cumprod(dim=1).sum(dim=1)
+                m_at_c = m.gather(1, c[:, None])[:, 0]
+            else:
+                V = logits.shape[-1]
+                fl = filtered_logits(logits.reshape(-1, V), temperature, top_k, top_p,
+                                     min_p).reshape(B, T, V)
+                c, m_at_c = spec_accept(fl, drafts, generator)
+            drafts_ext = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+            cc = c[:, None]
+            out_toks[i] = torch.where(jT[None] < cc, drafts_ext,
+                                      torch.where(jT[None] == cc, m_at_c[:, None], 0))
+            n_emit = ((c + 1) * active).to(torch.int32)
+            out_counts[i] = n_emit
+            flush_staging(state.k, state.v, state.k_scale, state.v_scale, state.k_stage,
+                          state.v_stage, state.lengths)
+            state.lengths += n_emit
+            state.last_token = torch.where(active, m_at_c, state.last_token)
+        if with_logits:
+            return out_toks, out_counts, torch.stack(out_logits)
+        return out_toks, out_counts
 
     return chunk_fn
 
@@ -428,6 +580,8 @@ class Request:
     prompt: list[int]
     max_new_tokens: int
     out: list[int] = dataclasses.field(default_factory=list)
+    # each token of `out`'s log-probability (Engine(logprobs=True) only)
+    logprobs: list[float] = dataclasses.field(default_factory=list)
     done: bool = False
     # stop sequences (token-id lists): generation ends when the output
     # tail matches one; the matched tokens are removed from `out`
@@ -466,7 +620,12 @@ class Engine:
     default); `prefix_cache` (paged only): share prompt-prefix pages.
     `fuse_weights=False` takes params that are already fused;
     `interleave_prefill=False` admits a long prompt in one step instead of
-    `prefill_chunks_per_step` chunks per step.
+    `prefill_chunks_per_step` chunks per step. `spec_k` > 0: speculative
+    decoding with spec_k prompt-lookup drafts per verify step (linear
+    caches; `spec_emitted` / `spec_verify_slots` is the measured tokens
+    per verify step); `logprobs`: every token's log-probability in
+    `Request.logprobs`. Neither goes with the other, nor spec_k with
+    `paged` (ValueError, as in the JAX engine).
     """
 
     def __init__(self, params, cfg: LlamaConfig, *, max_batch=8, max_seq=2048,
@@ -478,9 +637,11 @@ class Engine:
                  prefill_chunk: int = 512, prefill_chunks_per_step: int = 4,
                  pipeline_depth: int = 2, spec_k: int = 0, prefix_cache: bool = False,
                  max_queue: int = 256, w8a8: bool = True, interleave_prefill: bool = True):
-        for name, on in (("spec_k > 0", spec_k > 0), ("logprobs=True", logprobs)):
-            if on:
-                raise NotImplementedError(f"Engine({name}) is not ported yet")
+        if spec_k and paged:
+            raise ValueError("spec decoding not supported with paged")
+        if spec_k and logprobs:
+            raise ValueError("logprobs not supported with spec decoding (the verify step keeps "
+                             "only accepted-token ids)")
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires paged=True")
         _check_params(params)
@@ -494,6 +655,12 @@ class Engine:
         self.top_k = top_k
         self.top_p = top_p
         self.min_p = min_p
+        self.logprobs = logprobs
+        # speculative decoding: tokens emitted and verify steps metered per
+        # slot (their ratio is the measured tokens per verify step)
+        self.spec_k = spec_k
+        self.spec_emitted = 0
+        self.spec_verify_slots = 0
         if not 1 <= chunk_size <= STAGE_W:
             raise ValueError(f"chunk_size must be in [1, {STAGE_W}]")
         self.chunk_size = chunk_size
@@ -542,14 +709,27 @@ class Engine:
         else:
             # the flush writes STAGE_W rows at each slot's length, and
             # inflight chunks can advance a finished slot (depth-1) chunks
-            # past max_seq before collection zeroes it: pad for both
-            alloc = -(-(max_seq + STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size)
-                      // 32) * 32
+            # past max_seq before collection zeroes it: pad for both. A
+            # spec chunk advances a slot by up to chunk_size * (spec_k + 1)
+            # tokens, and a finished slot runs to the end of its own chunk
+            # too: pad spec decoding for depth such chunks.
+            pad = STAGE_W + 32 + (self.pipeline_depth - 1) * chunk_size
+            if spec_k:
+                pad = STAGE_W + 32 + self.pipeline_depth * chunk_size * (spec_k + 1)
+            alloc = -(-(max_seq + pad) // 32) * 32
             self.state = init_state(cfg, max_batch, alloc, self.device, quantized_kv)
+            # the drafting history: each slot's tokens at their positions
+            self._history = (torch.zeros((max_batch, alloc), dtype=torch.int32,
+                                         device=self.device) if spec_k else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p,
-                                        paged=paged, page_size=page_size if paged else 0)
+        if spec_k:
+            self._chunk = make_spec_chunk(cfg, chunk_size, spec_k, temperature, top_k, top_p,
+                                          min_p)
+        else:
+            self._chunk = make_decode_chunk(cfg, chunk_size, temperature, top_k, top_p, min_p,
+                                            paged=paged, page_size=page_size if paged else 0,
+                                            logprobs=logprobs)
         self._prefill = make_prefill_unrolled(cfg, w8a8=w8a8)
         self.prefill_chunk = prefill_chunk
         self._prefill_chunk_fn = make_prefill_chunk_step(cfg, w8a8=w8a8)
@@ -573,6 +753,8 @@ class Engine:
         self.state.lengths.zero_()
         self.state.k_stage.zero_()
         self.state.v_stage.zero_()
+        if self.spec_k:
+            self._history.zero_()
         if self.paged:
             # drop the dummy prompts' cached prefixes: their refs would pin
             # those pages out of the free list for the server's life
@@ -899,11 +1081,15 @@ class Engine:
         self.state.lengths[slot] = L
         if self.prefix_cache:
             self._insert_prefix(req.prompt, slot)
+        if self.spec_k:  # the drafting history: the prompt at positions [0, L)
+            self._history[slot, :L] = torch.tensor(req.prompt, dtype=torch.int32)
         # sample the prefill token with the same settings as decode
         first = int(sample_tokens(logits, self._gen, self.temperature, self.top_k,
                                   self.top_p, self.min_p)[0])
         self.state.last_token[slot] = first
         req.out.append(first)
+        if self.logprobs:
+            req.logprobs.append(float(torch.log_softmax(logits[0].float(), dim=-1)[first]))
         # stop-sequence check FIRST so a final token that completes a stop
         # gets stripped consistently
         if (self._hit_stop(req)
@@ -928,13 +1114,19 @@ class Engine:
                 for slot in live:
                     self._ensure_pages(slot, self._host_lens[slot] + self.chunk_size + PAGE_SLACK)
                 self._flush_page_table()
-            toks = self._chunk(self.params, self.state, self._gen)
+            counts = lps = None
+            if self.spec_k:
+                toks, counts = self._chunk(self.params, self.state, self._history, self._gen)
+            elif self.logprobs:
+                toks, lps = self._chunk(self.params, self.state, self._gen)
+            else:
+                toks = self._chunk(self.params, self.state, self._gen)
             if self.paged:  # the chunk's own advance of the lengths
                 self._host_lens = [n + self.chunk_size if n > 0 else 0 for n in self._host_lens]
             # snapshot slot->request at dispatch time: collection must not
             # attribute this chunk's tokens to a request admitted into a
             # recycled slot later
-            self._inflight.append((toks, live))
+            self._inflight.append((toks, counts, live, lps))
             dispatched = True
         keep = self.pipeline_depth - 1 if dispatched else 0
         while len(self._inflight) > keep:
@@ -959,6 +1151,7 @@ class Engine:
             n = len(seq)
             if len(req.out) >= n and req.out[-n:] == seq:
                 del req.out[-n:]
+                del req.logprobs[len(req.out):]
                 self._trim_decode_state(req)
                 return True
         if req.stop_texts:
@@ -980,19 +1173,41 @@ class Engine:
                 while req.out and len(req._dec_bytes) > best:
                     req.out.pop()
                     self._trim_decode_state(req)
+                del req.logprobs[len(req.out):]
                 return True
         return False
 
-    def _collect(self, toks_dev, live):
-        toks = toks_dev.cpu().tolist()  # waits for the chunk: (chunk, B)
+    def _collect(self, toks_dev, counts_dev, live, lps_dev=None):
+        """Append a dispatched chunk's tokens (and logprobs) to its
+        requests and retire the finished ones. A spec chunk's (steps, B, T)
+        tokens come with counts (steps, B); the counters meter only what a
+        request consumed: the tokens that survive in `out`, and the verify
+        steps up to the one that finished it."""
+        toks = toks_dev.cpu()  # waits for the chunk: (chunk, B) or (steps, B, T)
+        counts = counts_dev.cpu().tolist() if counts_dev is not None else None
+        lps = lps_dev.cpu().tolist() if lps_dev is not None else None
+        toks = toks.tolist()
         for slot, req in live.items():
             if req.done:
                 # finished in an earlier chunk while this one was already
                 # in flight; its tokens for the slot are surplus
                 continue
-            for t in range(len(toks)):
-                tok = toks[t][slot]
+            if counts is None:
+                slot_toks = [toks[t][slot] for t in range(len(toks))]
+                slot_lps = [lps[t][slot] for t in range(len(toks))] if lps is not None else None
+            else:
+                # (token, verify step) pairs
+                pairs = [(toks[t][slot][j], t) for t in range(len(toks))
+                         for j in range(counts[t][slot])]
+                slot_toks = [tok for tok, _ in pairs]
+                slot_lps = None
+            n_consumed = 0
+            out_before = len(req.out)
+            for tok in slot_toks:
                 req.out.append(tok)
+                if slot_lps is not None:
+                    req.logprobs.append(slot_lps[n_consumed])
+                n_consumed += 1
                 full = len(req.prompt) + len(req.out) >= self.max_seq
                 # stop check FIRST (unconditionally): a final allowed token
                 # (or EOS) that also completes a stop sequence must still
@@ -1007,6 +1222,15 @@ class Engine:
                         self.slots[slot] = None
                     self._retire_slot(slot)
                     break
+            if counts is not None:
+                # the tokens that survive in req.out (a stop string may
+                # have taken some back); the verify steps up to the one
+                # that finished the request, else every step of the chunk
+                self.spec_emitted += len(req.out) - out_before
+                if req.done and n_consumed:
+                    self.spec_verify_slots += pairs[n_consumed - 1][1] + 1
+                else:
+                    self.spec_verify_slots += len(toks)
 
     def run(self, max_steps: int = 10_000):
         steps = 0

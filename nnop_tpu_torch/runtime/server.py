@@ -14,7 +14,9 @@ polling and the step loop never blocks on the network.
 Endpoints:
   POST /v1/completions   {"prompt": str | [int], "max_tokens": int,
                           "stream": bool}
-                         -> {"id", "tokens", "text"?}, or
+                         -> {"id", "tokens", "text"?, "logprobs"?}
+                         ("logprobs": one per token, when the engine
+                         has logprobs=True), or
                          with "stream": true, Server-Sent Events — one
                          `data: {"tokens": [...]}` event per decode
                          chunk as tokens land, then `data: [DONE]`
@@ -234,6 +236,8 @@ class EngineServer:
                 out = {"id": req.rid, "tokens": req.out}
                 if server.engine.tokenizer is not None:
                     out["text"] = server.engine.decode_text(req)
+                if server.engine.logprobs:
+                    out["logprobs"] = req.logprobs
                 return self._json(200, out)
 
         self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)

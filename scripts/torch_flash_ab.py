@@ -1,34 +1,47 @@
-"""Time the port's featureless flash-attention kernels (C, dQ, dK/dV) in
-two or more checkouts on one card, in turns, so that two versions are
-compared inside one call.
+"""Time the port's attention kernels in two or more checkouts on one card,
+in turns, so that two versions are compared inside one call.
 
-    python scripts/torch_flash_ab.py ROOT_A ROOT_B [ROOT_B ROOT_A ...]
+    python scripts/torch_flash_ab.py [--kernel flash|decode] ROOT_A ROOT_B [ROOT_B ROOT_A ...]
 
 Each ROOT is a checkout holding `nnop_tpu_torch/`. Every ROOT runs in a
 process of its own (it builds and imports its own kernels), at the shapes
-of `chip_smoke.py` phase 3's main cases: C at q (1, 32, 512, 128) over kv
-(1, 8, 1536, 128) from row offset 1024 (a prefill chunk), C causal at the
-8B training geometry q (2, 32, 4096, 128), kv (2, 8, 4096, 128), and dQ
-and dK/dV there; then the same three kernels there with a pair bias
-(2, 32, 4096, 4096) bf16 and with segment ids (four documents of 1024),
-where the ROOT's kernels take them (null where they raise). One JSON
-line per ROOT: median ms over 5 repetitions of back-to-back calls (CUDA
-events), with the card's name and power limit.
+of `chip_smoke.py` phase 3's main cases.
+
+`--kernel flash` (the default): the featureless flash-attention kernels
+C, dQ and dK/dV. C at q (1, 32, 512, 128) over kv (1, 8, 1536, 128) from
+row offset 1024 (a prefill chunk), C causal at the 8B training geometry
+q (2, 32, 4096, 128), kv (2, 8, 4096, 128), and dQ and dK/dV there; then
+the same three kernels there with a pair bias (2, 32, 4096, 4096) bf16
+and with segment ids (four documents of 1024), where the ROOT's kernels
+take them (null where they raise).
+
+`--kernel decode`: decode attention (kernel D) at q (8, 32, 1, 128) over
+the Llama-3-8B cache (32, 8, 8, 2144, 128), lengths 0..2100, staged 5, in
+bf16 and int8; Mistral's window (q (4, 32, 1, 128), lengths 300..8000,
+window 4096) and Gemma-2's head dim 256 with the softcap. Where the
+ROOT's D has the speculative-verify mode (q with T 5) it also times that
+at each shape and prints the tile relative error against the plain
+version (null, with what it raised, where D raises). The `ptxas -v`
+registers and spill-store bytes of each decode instantiation are printed
+once per ROOT where its process builds the kernels (empty where the
+ROOT's `build/` holds them already).
+
+One JSON line per ROOT: median ms over 5 repetitions of back-to-back
+calls (CUDA events), with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
 import sys
 
-_CHILD = r"""
-import json, statistics, subprocess, sys, torch
-from nnop_tpu_torch.ops.flash_attention import flash_fwd
-from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
+_PRELUDE = r"""
+import json, re, statistics, subprocess, sys, torch
 
-def ms(fn, n, reps=5):
+def ms(fn, n=20, reps=5):
     fn()
     torch.cuda.synchronize()
     out = []
@@ -45,10 +58,16 @@ def ms(fn, n, reps=5):
 
 g = torch.Generator(device="cuda")
 g.manual_seed(0)
-def randn(*s):
-    return torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+def randn(*s, scale=1.0):
+    return (torch.randn(s, generator=g, device="cuda") * scale).to(torch.bfloat16)
 
 res = {}
+"""
+
+_FLASH = r"""
+from nnop_tpu_torch.ops.flash_attention import flash_fwd
+from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
+
 q, k, v = randn(1, 32, 512, 128), randn(1, 8, 1536, 128), randn(1, 8, 1536, 128)
 kw = dict(causal=True, scale=128 ** -0.5, causal_offset=1024)
 res["flash_fwd_chunk_ms"] = ms(lambda: flash_fwd(q, k, v, **kw), 20)
@@ -73,6 +92,70 @@ for name, extra in (("pair", dict(pair=randn(2, 32, 4096, 4096))),
     res[f"flash_bwd_dq_{name}_ms"] = ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw, **extra), 5)
     res[f"flash_bwd_dkv_{name}_ms"] = ms(
         lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw, **extra), 5)
+"""
+
+_DECODE = r"""
+from nnop_tpu_torch.ops import naive
+from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.utils.build import build
+
+regs, entry, spill = {}, "", 0
+for line in build().log.splitlines():  # ptxas -v: the entry, its spill stores, its registers
+    if "Compiling entry function" in line:
+        entry = line.split("'")[1]
+    elif "spill stores" in line:
+        spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    elif "decode_kernel" in entry and "Used" in line and "registers" in line:
+        m = re.search(r"decode_kernelILi(\d+)E(.+?)Lb(\d)ELb(\d)E(?:Lb(\d)E)?", entry)
+        E, ty, paged, cap, verify = m.groups()
+        kind = {"ff": "f32", "fa": "f32/int8"}.get(ty, "bf16/int8" if ty.endswith("a") else "bf16")
+        key = f"E{E} {kind} paged{paged} softcap{cap} verify{verify or 0}"
+        regs[key] = [int(re.search(r"Used (\d+) registers", line).group(1)), spill]
+res["registers"] = regs
+
+def tile_err(got, ref, tile=64):
+    def tiles(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, -t.shape[2] % tile))
+        return t.reshape(*t.shape[:2], -1, tile * t.shape[3])
+    dn = tiles(got.float() - ref.float()).norm(dim=-1)
+    rn = tiles(ref.float()).norm(dim=-1)
+    return float("inf") if bool((dn[rn == 0] > 0).any()) else (dn[rn > 0] / rn[rn > 0]).max().item()
+
+def case(key, args, kw):
+    try:
+        o = decode_attention(*args, **kw)
+    except (NotImplementedError, ValueError, RuntimeError) as e:
+        res[key + "_ms"], res[key + "_raised"] = None, f"{type(e).__name__}: {e}"[:200]
+        return
+    res[key + "_err"] = tile_err(o, naive.naive_decode_attention(*args, **kw))
+    res[key + "_ms"] = ms(lambda: decode_attention(*args, **kw))
+
+NL, B, KH, S = 32, 8, 8, 2144
+lengths = torch.tensor([0, 1, 63, 64, 65, 300, 1100, 2100], dtype=torch.int32, device="cuda")
+stage = (randn(B, NL, KH, 32, 128), randn(B, NL, KH, 32, 128))
+for mode in ("bf16", "int8"):
+    if mode == "bf16":
+        caches, scales = (randn(NL, B, KH, S, 128), randn(NL, B, KH, S, 128)), ()
+    else:
+        caches = tuple(torch.randint(-127, 128, (NL, B, KH, S, 128), generator=g, device="cuda",
+                                     dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand((NL, B, KH, S), generator=g, device="cuda") * 0.02 + 0.01
+                       for _ in range(2))
+    for T in (1, 5):
+        case(f"{mode}_T{T}", (randn(B, 32, T, 128), *caches, lengths, *scales),
+             dict(k_stage=stage[0], v_stage=stage[1], staged_n=5, layer=3))
+    del caches, scales
+lens = torch.tensor([300, 4500, 6100, 8000], dtype=torch.int32, device="cuda")
+for name, E, QH, KHf, cap, qs in (("mistral_window", 128, 32, 8, None, 1.0),
+                                  ("gemma2_e256_softcap", 256, 8, 4, 50.0, 40.0)):
+    caches = (randn(2, 4, KHf, 8032, E), randn(2, 4, KHf, 8032, E))
+    st = (randn(4, 2, KHf, 32, E), randn(4, 2, KHf, 32, E))
+    for T in (1, 5):
+        case(f"{name}_T{T}", (randn(4, QH, T, E, scale=qs), *caches, lens),
+             dict(k_stage=st[0], v_stage=st[1], staged_n=5, layer=1, window=4096, softcap=cap))
+"""
+
+_CARD = r"""
 res["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip().splitlines()[0]
@@ -81,16 +164,26 @@ print(json.dumps(res))
 
 
 def main():
-    roots = sys.argv[1:]
-    if len(roots) < 2:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("flash", "decode"), default="flash")
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args()
+    if len(args.roots) < 2:
         sys.exit(__doc__)
-    for root in roots:
+    child = _PRELUDE + {"flash": _FLASH, "decode": _DECODE}[args.kernel] + _CARD
+    seen = set()
+    for root in args.roots:
         root = os.path.abspath(root)
-        out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root, capture_output=True,
+        out = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True,
                              text=True, env=dict(os.environ, PYTHONPATH=root))
         if out.returncode:
             sys.exit(f"{root}: exit {out.returncode}\n{out.stderr[-4000:]}")
-        print(json.dumps(dict(root=root, **json.loads(out.stdout.strip().splitlines()[-1]))))
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        regs = res.pop("registers", None)
+        if regs is not None and root not in seen:  # the build's report, once per ROOT
+            seen.add(root)
+            print(json.dumps(dict(root=root, registers=regs)))
+        print(json.dumps(dict(root=root, **res)))
 
 
 if __name__ == "__main__":

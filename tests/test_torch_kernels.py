@@ -23,7 +23,9 @@ in f32, 1e-2 in bf16; dw and db 1e-4), and attention with the pair bias
 and segment ids (C, dQ with dpair, dK/dV), and at head dims the kernels
 reach by padding (32, 96), to 1e-2 relative per 64-row tile; so are
 dQ and dK/dV with the window, the softcap (where it binds), head dim 256
-and segment ids with the softcap.
+and segment ids with the softcap, and decode attention's speculative
+verify mode (T > 1, and past 32 rows a block its split over z-blocks),
+against which a wrong intra-draft mask or a dropped z-block must fail.
 """
 
 import pytest
@@ -230,6 +232,58 @@ def test_decode_kernel_window_softcap(gen, quantized, mode, E, QH, KH, window, s
     if window is not None:  # an off-by-one in the window must not pass
         wrong = plain(*args, **dict(kw, window=window + 1))
         assert (got.float() - wrong.float()).abs().max().item() > TOL["atol"]
+
+
+# the verify mode (T > 1): (E, QH, KH, window, softcap, q scale); the
+# softcap binds where q is scaled up
+VERIFY_MODES = {"E128": (128, 32, 8, None, None, 1.0), "E128_window17": (128, 32, 8, 17, None, 1.0),
+                "E256_softcap50_window40": (256, 8, 4, 40, 50.0, 40.0),
+                "E256_mqa_window5": (256, 8, 1, 5, None, 1.0)}
+
+
+@pytest.mark.parametrize("T", [2, 5, 9])
+@pytest.mark.parametrize("case", list(VERIFY_MODES))
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_decode_verify_kernel(gen, quantized, case, T):
+    """Kernel D's verify mode: T draft tokens, the last T of 11 staged
+    rows, against the plain version (per-tile relative error, as every
+    attention case of the card); T 9 at G 4 runs two z-blocks. A wrong
+    intra-draft mask (one staged row too wide) must not pass."""
+    E, QH, KH, window, softcap, q_scale = VERIFY_MODES[case]
+    _, caches, scales, lengths, _, (ks, vs) = _decode_features_inputs(
+        gen, "linear", E, KH, QH, quantized)
+    q = _bf(gen, 4, QH, T, E, scale=q_scale)
+    args = (q, *caches, lengths, *scales)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=11, layer=1, window=window, softcap=softcap)
+    mode = (E, quantized, window is not None, softcap is not None, True)
+    before = decode_attention.verify_launches, decode_attention.mode_launches.get(mode, 0)
+    got = decode_attention(*args, **kw)
+    assert (decode_attention.verify_launches, decode_attention.mode_launches[mode]) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == q.shape and (got[0] == 0).all()  # the empty slot
+    want = naive.naive_decode_attention(*args, **kw)
+    assert _tile_rel_err(got, want) <= 1e-2
+    wide = naive.naive_decode_attention(*args, **dict(kw, staged_n=12))
+    assert _tile_rel_err(got, wide) > 1e-2
+
+
+@pytest.mark.parametrize("T", [1, 4, 5, 9])
+def test_decode_verify_kernel_z_split(gen, T):
+    """G 8 (QH 32 over KH 4): a block holds 4 drafts, so T 5 and 9 split
+    whole drafts over 2 and 3 z-blocks; every draft's rows are right (a
+    dropped last z-block must not pass) and T 1 counts no verify launch."""
+    _, caches, _, lengths, _, (ks, vs) = _decode_features_inputs(gen, "linear", 128, 4, 32, False)
+    q = _bf(gen, 4, 32, T, 128)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=9, layer=0, window=70)
+    before = decode_attention.verify_launches
+    got = decode_attention(q, *caches, lengths, **kw)
+    assert decode_attention.verify_launches == before + (T > 1)
+    want = naive.naive_decode_attention(q, *caches, lengths, **kw)
+    assert _tile_rel_err(got, want) <= 1e-2
+    if T > 4:
+        dropped = want.clone()
+        dropped[:, :, (T - 1) // 4 * 4:] = 0
+        assert _tile_rel_err(got, dropped) > 1e-2
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
@@ -648,7 +702,7 @@ def test_decode_kernel_softcap_binds(gen, quantized, mode, case, window):
     else:
         op, plain, args = (decode_attention, naive.naive_decode_attention,
                            (q, *caches, lengths, *scales))
-    mode = (E, quantized, window is not None, True)
+    mode = (E, quantized, window is not None, True, False)
     before = op.mode_launches.get(mode, 0)
     got = op(*args, **kw)
     assert op.mode_launches[mode] == before + 1

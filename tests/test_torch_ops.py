@@ -160,6 +160,6 @@ def test_unported_features_raise_on_the_kernel_path():
     cache = torch.zeros(1, 2, 8, 32, dtype=torch.int8)
     with pytest.raises(ValueError, match="int8 cache"):  # the int8 cache needs its scales
         decode_attention(q, cache, cache, torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="staged"):  # T > 1 verifies staged drafts
         decode_attention(torch.zeros(1, 4, 2, 32), cache.float(), cache.float(),
                          torch.zeros(1, dtype=torch.int32))

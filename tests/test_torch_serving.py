@@ -152,11 +152,16 @@ def test_sample_tokens_filters():
     assert int(sample_tokens(logits, None)[0]) == 0  # temperature 0: argmax
 
 
-@pytest.mark.parametrize("option", [dict(spec_k=2), dict(logprobs=True)],
+@pytest.mark.parametrize("option,refused_with", [(dict(spec_k=2), dict(paged=True)),
+                                                  (dict(logprobs=True), dict(spec_k=2))],
                          ids=["spec_k", "logprobs"])
-def test_unported_engine_options_raise(params, option):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine(params, CFG, max_batch=1, max_seq=64, **option)
+def test_unported_engine_options_raise(params, option, refused_with):
+    """spec_k and logprobs are ported (tests/test_torch_spec.py); what the
+    JAX engine refuses with them, spec decoding over paged pools or with
+    logprobs, raises ValueError."""
+    assert Engine(params, CFG, max_batch=1, max_seq=64, **option).spec_k == option.get("spec_k", 0)
+    with pytest.raises(ValueError, match="not supported"):
+        Engine(params, CFG, max_batch=1, max_seq=64, **option, **refused_with)
 
 
 def test_prefix_cache_needs_paged(params):
