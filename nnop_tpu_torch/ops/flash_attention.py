@@ -16,9 +16,14 @@ Layouts are the JAX package's: q (B, QH, QL, E), k/v (B, KH, KL, E),
 kpad_mask (B, KL) with True = valid, pair (B, QH, QL, KL) (bf16 or f32
 on the card), segment_ids ((B, QL), (B, KL)) ints. GQA: query head h
 reads KV head h // (QH // KH). The kernel takes bf16 and head dim 64, 128
-or 256; `flash_attention` zero-pads any other head dim up to the next of
-them on the card (the JAX op's padding, nnop_tpu/ops/flash_attention.py
-:1471-1483). The softcap takes no pair (as in JAX).
+or 256; `flash_attention` and `flash_attention_chunked` zero-pad any
+other head dim up to the next of them on the card (the JAX op's padding,
+nnop_tpu/ops/flash_attention.py:1471-1483), and round f32 q, k and v to
+bf16 at the op boundary (in the backward, the f32 output gradient too):
+the kernels run on the bf16 operands, as the TPU's f32 dots at default
+precision run as bf16 passes, and o and the gradients come back in f32.
+That is the kernels' own path, not a fallback: no plain version runs on
+a CUDA tensor. The softcap takes no pair (as in JAX).
 
 `flash_attention` is differentiable through a `torch.autograd.Function`
 (the JAX custom VJP, nnop_tpu/ops/flash_attention.py:1350-1379): its
@@ -79,6 +84,17 @@ def pad_head_dim(fn, q, k, v, Ep: int):
     E = q.shape[-1]
     q, k, v = (F.pad(t, (0, Ep - E)) for t in (q, k, v))
     return fn(q, k, v)[..., :E]
+
+
+def _has_f32(*ts):
+    return any(t.dtype == torch.float32 for t in ts)
+
+
+def round_to_bf16(fn, q, k, v):
+    """fn(q, k, v) on q, k, v rounded to bf16 (the kernels' operand type),
+    the output cast back to q's dtype; through autograd the casts round
+    the output gradient to bf16 and return the gradients in f32."""
+    return fn(*(t.to(torch.bfloat16) for t in (q, k, v))).to(q.dtype)
 
 
 def _segments(segment_ids, q, k):
@@ -225,11 +241,16 @@ def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
     E = q.shape[-1]
     scale = float(1.0 / (E ** 0.5) if scale is None else scale)
     if q.device.type == "cuda":
+        def again(q, k, v):
+            return flash_attention(q, k, v, pair, causal=causal, kpad_mask=kpad_mask,
+                                   segment_ids=segment_ids, scale=scale, window=window,
+                                   softcap=softcap)
+
         Ep = kernel_head_dim(E)
         if Ep != E:
-            return pad_head_dim(lambda q, k, v: flash_attention(
-                q, k, v, pair, causal=causal, kpad_mask=kpad_mask, segment_ids=segment_ids,
-                scale=scale, window=window, softcap=softcap), q, k, v, Ep)
+            return pad_head_dim(again, q, k, v, Ep)
+        if _has_f32(q, k, v):
+            return round_to_bf16(again, q, k, v)
         if pair is not None:
             pair = pair.contiguous()
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, pair)):
@@ -239,6 +260,21 @@ def flash_attention(q, k, v, pair=None, *, causal: bool = False, kpad_mask=None,
     o, _ = flash_fwd(q, k, v, causal=causal, scale=scale, kpad_mask=kpad_mask,
                      pair=pair, segment_ids=segment_ids, window=window, softcap=softcap)
     return o
+
+
+def lse_merge(o1, lse1, o2, lse2):
+    """Combine two normalised attention partials over disjoint KV ranges:
+    the (o, lse) monoid of nnop_tpu/ops/flash_attention.py:lse_merge, with
+    its arithmetic (f32 weights, o back in o1's dtype). lse broadcasts
+    against o (give it a trailing 1). Two empty partials (lse -inf) give
+    NaN, as in JAX; kernel D keeps (max, sum) and guards a zero sum
+    itself."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)
+    w2 = torch.exp(lse2 - m)
+    den = w1 + w2
+    o = (o1.float() * w1 + o2.float() * w2) / den
+    return o.to(o1.dtype), m + torch.log(den)
 
 
 def flash_attention_chunked(q, k, v, *, causal_offset: int, kpad_mask=None,
@@ -251,6 +287,17 @@ def flash_attention_chunked(q, k, v, *, causal_offset: int, kpad_mask=None,
     _validate(q, k, v, None, kpad_mask)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cuda":
+        def again(q, k, v):
+            return flash_attention_chunked(q, k, v, causal_offset=causal_offset,
+                                           kpad_mask=kpad_mask, scale=scale, window=window,
+                                           softcap=softcap)
+
+        Ep = kernel_head_dim(q.shape[-1])
+        if Ep != q.shape[-1]:
+            return pad_head_dim(again, q, k, v, Ep)
+        if _has_f32(q, k, v):
+            return round_to_bf16(again, q, k, v)
     o, _ = flash_fwd(q, k, v, causal=True, scale=float(scale),
                      causal_offset=int(causal_offset), kpad_mask=kpad_mask,
                      window=window,

@@ -331,8 +331,56 @@ def naive_paged_decode_attention(
     P in bf16 and is masked for a slot with lengths[b] == 0. A slot that
     sees no key gets zeros.
     """
+    o, m, l = _decode_parts(q, pool_k, pool_v, page_table, lengths, k_scale, v_scale,
+                            scale=scale, k_stage=k_stage, v_stage=v_stage, staged_n=staged_n,
+                            layer=layer, window=window, softcap=softcap)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (o / l).to(q.dtype).reshape(q.shape)
+
+
+def naive_decode_partials(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *, ranges,
+                          stage_split: int, scale: float | None = None, k_stage=None,
+                          v_stage=None, staged_n: int = 0, layer: int | None = None,
+                          window: int | None = None, softcap: float | None = None):
+    """The plain form of kernel D's split-KV: naive_decode_attention's
+    function as one partial per split, to be merged with
+    ops/flash_attention.py:lse_merge. ranges[s] = (lo, hi), (B,) ints:
+    split s attends slot b's cache rows [lo[b], hi[b]) (as
+    naive_decode_attention attends them, masks and rounding included);
+    split `stage_split` also attends the staged rows. Returns [(o_s (B,
+    QH, T, E) f32, normalised within the split, lse_s (B, QH, T, 1) f32)];
+    a split that sees no key gives o 0 and lse MASK_VALUE (finite, so that
+    merging two of them stays finite; the kernel keeps (max, sum) and
+    guards a zero sum). The staging part rounds P against its split's
+    running maximum, the whole call against the cache part's, so the two
+    agree exactly where every row's maximum is a staged score."""
+    table = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
+    parts = []
+    for s, rows in enumerate(ranges):
+        o, m, l = _decode_parts(
+            q, k_cache, v_cache, table, lengths, k_scale, v_scale, scale=scale,
+            k_stage=k_stage if s == stage_split else None,
+            v_stage=v_stage if s == stage_split else None, staged_n=staged_n, layer=layer,
+            window=window, softcap=softcap, rows=rows)
+        empty = l == 0
+        lse = torch.where(empty, torch.full_like(m, MASK_VALUE),
+                          m + torch.log(torch.where(empty, torch.ones_like(l), l)))
+        o = torch.where(empty, torch.zeros_like(o), o / torch.where(empty, torch.ones_like(l), l))
+        parts.append((o.reshape(q.shape), lse.reshape(*q.shape[:3], 1)))
+    return parts
+
+
+def _decode_parts(q, pool_k, pool_v, page_table, lengths, k_scale=None, v_scale=None, *,
+                  scale=None, k_stage=None, v_stage=None, staged_n: int = 0, layer=None,
+                  window=None, softcap=None, rows=None):
+    """naive_paged_decode_attention's online softmax -> its state (o
+    unnormalised (B, KH, G * T, E), m, l (B, KH, G * T, 1)). rows: (lo,
+    hi), (B,) ints, keeps only slot b's cache rows [lo[b], hi[b]); with
+    it and no staging, staged_n still places the queries (a split that
+    does not hold the staged rows)."""
     B, QH, T, E = q.shape
-    staged_n = check_draft_rows(T, k_stage, staged_n)
+    if rows is None or k_stage is not None:
+        staged_n = check_draft_rows(T, k_stage, staged_n)
     pk = pool_k[layer] if layer is not None else pool_k
     pv = pool_v[layer] if layer is not None else pool_v
     quantized = pk.dtype == torch.int8
@@ -385,6 +433,9 @@ def naive_paged_decode_attention(
             # query t sits at position lengths + staged_n - T + t
             lo = lens[:, None] + own[None] + 1 - window  # (B, R)
             mask = mask & (pos[None, None] >= lo[:, :, None])
+        if rows is not None:  # this split's rows
+            lo_b, hi_b = (torch.as_tensor(x, device=q.device).long() for x in rows)
+            mask = mask & ((pos[None] >= lo_b[:, None]) & (pos[None] < hi_b[:, None]))[:, None]
         if quantized:
             vj = vsc[ids].float()[:, :, None, :]
 
@@ -409,8 +460,7 @@ def naive_paged_decode_attention(
         mask = mask[None] & (lens > 0)[:, None, None]  # (B, R, W)
         online_step(softcapped(s), mask[:, None].expand(B, KH, R, W),
                     lambda p: p.to(torch.bfloat16).float(), vs)
-    l = torch.where(l == 0, torch.ones_like(l), l)
-    return (o / l).to(q.dtype).reshape(B, QH, T, E)
+    return o, m, l
 
 
 def check_draft_rows(T: int, k_stage, staged_n) -> int:

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-lineinfo", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
@@ -45,10 +45,10 @@ SIGNATURES = {
     # KH, QL, KL, E, pair_f32, scale, causal, window, softcap, stream
     "nnop_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, k_stage, v_stage, lengths,
-    # page_table, o, B, QH, KH, S, E, T, n_blocks, max_pages, n_layers,
-    # layer, W, staged_n, scale, window, softcap, q_is_f32, cache_is_int8,
-    # stream
-    "nnop_decode_attention": [_P] * 10 + [_I] * 12 + [_F, _I, _F, _I, _I, _P],
+    # page_table, o, ws, tickets, ws_elems, n_tickets, B, QH, KH, S, E, T,
+    # n_blocks, max_pages, n_layers, layer, W, staged_n, scale, window,
+    # softcap, q_is_f32, cache_is_int8, n_split, stream
+    "nnop_decode_attention": [_P] * 12 + [_L] + [_I] * 13 + [_F, _I, _F, _I, _I, _I, _P],
     # k_stage, v_stage, k_cache, v_cache, k_scale, v_scale, lengths,
     # page_table, B, n_blocks, max_pages, n_layers, KH, S, W, E, cache_kind,
     # stream

@@ -15,16 +15,21 @@ the same three kernels there with a pair bias (2, 32, 4096, 4096) bf16
 and with segment ids (four documents of 1024), where the ROOT's kernels
 take them (null where they raise).
 
-`--kernel decode`: decode attention (kernel D) at q (8, 32, 1, 128) over
-the Llama-3-8B cache (32, 8, 8, 2144, 128), lengths 0..2100, staged 5, in
-bf16 and int8; Mistral's window (q (4, 32, 1, 128), lengths 300..8000,
-window 4096) and Gemma-2's head dim 256 with the softcap. Where the
-ROOT's D has the speculative-verify mode (q with T 5) it also times that
-at each shape and prints the tile relative error against the plain
-version (null, with what it raised, where D raises). The `ptxas -v`
-registers and spill-store bytes of each decode instantiation are printed
-once per ROOT where its process builds the kernels (empty where the
-ROOT's `build/` holds them already).
+`--kernel decode`: decode attention (kernel D) at `chip_smoke.py` phase
+3's shapes, at T 1 and T 5 (the speculative verify): q (8, 32, T, 128)
+over the Llama-3-8B cache (32, 8, 8, 2144, 128) and q (8, 32, T, 64) over
+a TinyLlama-1.1B one (22, 8, 4, 2144, 64), lengths 0..2100, staged 5, in
+bf16 and int8; G 8 at T 9 (q (4, 32, 9, 128), KH 4); Mistral's window (q
+(4, 32, T, 128), lengths 300..8000, window 4096) and Gemma-2's head dim
+256 with the softcap (window 4096, and its global layers), linear
+in bf16 and int8 and paged (pages of 512) at T 1; and the paged
+deployment (pools (32, 256, 8, 128, 128), lengths 512..640, staged 9,
+and TinyLlama's E 64 there), bf16 and int8. Each case prints its tile
+relative error against the plain version (null, with what it raised,
+where the ROOT's D raises). The `ptxas -v` registers and spill-store
+bytes of each decode instantiation are printed once per ROOT where its
+process builds the kernels (empty where the ROOT's `build/` holds them
+already).
 
 One JSON line per ROOT: median ms over 5 repetitions of back-to-back
 calls (CUDA events), with the card's name and power limit.
@@ -97,6 +102,7 @@ for name, extra in (("pair", dict(pair=randn(2, 32, 4096, 4096))),
 _DECODE = r"""
 from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
 from nnop_tpu_torch.utils.build import build
 
 regs, entry, spill = {}, "", 0
@@ -106,10 +112,15 @@ for line in build().log.splitlines():  # ptxas -v: the entry, its spill stores, 
     elif "spill stores" in line:
         spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
     elif "decode_kernel" in entry and "Used" in line and "registers" in line:
-        m = re.search(r"decode_kernelILi(\d+)E(.+?)Lb(\d)ELb(\d)E(?:Lb(\d)E)?", entry)
-        E, ty, paged, cap, verify = m.groups()
-        kind = {"ff": "f32", "fa": "f32/int8"}.get(ty, "bf16/int8" if ty.endswith("a") else "bf16")
-        key = f"E{E} {kind} paged{paged} softcap{cap} verify{verify or 0}"
+        m = re.search(r"decode_kernelILi(\d+)ELi(\d)E(.+?)Lb(\d)ELb(\d)E", entry)
+        if m:  # split-KV: padded head dim, row tiles, cache type, paged, softcap
+            E, rows, ty, paged, cap = m.groups()
+            key = f"E{E} m{rows} {ty[-4:]} paged{paged} softcap{cap}"
+        else:  # one block per (slot, KV head): q/cache types, paged, softcap, verify
+            m = re.search(r"decode_kernelILi(\d+)E(.+?)Lb(\d)ELb(\d)E(?:Lb(\d)E)?", entry)
+            E, ty, paged, cap, verify = m.groups()
+            kind = {"ff": "f32", "fa": "f32/int8"}.get(ty, "bf16/int8" if ty.endswith("a") else "bf16")
+            key = f"E{E} {kind} paged{paged} softcap{cap} verify{verify or 0}"
         regs[key] = [int(re.search(r"Used (\d+) registers", line).group(1)), spill]
 res["registers"] = regs
 
@@ -121,38 +132,81 @@ def tile_err(got, ref, tile=64):
     rn = tiles(ref.float()).norm(dim=-1)
     return float("inf") if bool((dn[rn == 0] > 0).any()) else (dn[rn > 0] / rn[rn > 0]).max().item()
 
-def case(key, args, kw):
+def case(key, args, kw, paged=False):
+    op = paged_decode_attention if paged else decode_attention
+    ref = naive.naive_paged_decode_attention if paged else naive.naive_decode_attention
     try:
-        o = decode_attention(*args, **kw)
+        o = op(*args, **kw)
     except (NotImplementedError, ValueError, RuntimeError) as e:
         res[key + "_ms"], res[key + "_raised"] = None, f"{type(e).__name__}: {e}"[:200]
         return
-    res[key + "_err"] = tile_err(o, naive.naive_decode_attention(*args, **kw))
-    res[key + "_ms"] = ms(lambda: decode_attention(*args, **kw))
+    res[key + "_err"] = tile_err(o, ref(*args, **kw))
+    res[key + "_ms"] = ms(lambda: op(*args, **kw))
 
-NL, B, KH, S = 32, 8, 8, 2144
+def cache(shape, int8):
+    if not int8:
+        return (randn(*shape), randn(*shape)), ()
+    return (tuple(torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+                  for _ in range(2)),
+            tuple(torch.rand(shape[:4], generator=g, device="cuda") * 0.02 + 0.01
+                  for _ in range(2)))
+
+def table_for(B, n_pages, max_pages):
+    perm = torch.randperm(n_pages, generator=g, device="cuda").to(torch.int32)
+    return perm[: B * max_pages].reshape(B, max_pages).contiguous()
+
+# Llama-3-8B (E 128, G 4) and TinyLlama-1.1B (E 64, G 8): linear, T 1 and 5
 lengths = torch.tensor([0, 1, 63, 64, 65, 300, 1100, 2100], dtype=torch.int32, device="cuda")
-stage = (randn(B, NL, KH, 32, 128), randn(B, NL, KH, 32, 128))
-for mode in ("bf16", "int8"):
-    if mode == "bf16":
-        caches, scales = (randn(NL, B, KH, S, 128), randn(NL, B, KH, S, 128)), ()
-    else:
-        caches = tuple(torch.randint(-127, 128, (NL, B, KH, S, 128), generator=g, device="cuda",
-                                     dtype=torch.int8) for _ in range(2))
-        scales = tuple(torch.rand((NL, B, KH, S), generator=g, device="cuda") * 0.02 + 0.01
-                       for _ in range(2))
-    for T in (1, 5):
-        case(f"{mode}_T{T}", (randn(B, 32, T, 128), *caches, lengths, *scales),
-             dict(k_stage=stage[0], v_stage=stage[1], staged_n=5, layer=3))
-    del caches, scales
+for name, NL, KH, E in (("", 32, 8, 128), ("e64_", 22, 4, 64)):
+    stage = (randn(8, NL, KH, 32, E), randn(8, NL, KH, 32, E))
+    for mode in ("bf16", "int8"):
+        caches, scales = cache((NL, 8, KH, 2144, E), mode == "int8")
+        for T in (1, 5):
+            case(f"{name}{mode}_T{T}", (randn(8, 32, T, E), *caches, lengths, *scales),
+                 dict(k_stage=stage[0], v_stage=stage[1], staged_n=5, layer=3))
+        del caches, scales
+# G 8 past the row bound: q (4, 32, 9, 128), KH 4 (z-split)
+caches = (randn(2, 4, 4, 2144, 128), randn(2, 4, 4, 2144, 128))
+st = (randn(4, 2, 4, 32, 128), randn(4, 2, 4, 32, 128))
+case("g8_T9", (randn(4, 32, 9, 128), *caches,
+               torch.tensor([0, 1, 65, 2100], dtype=torch.int32, device="cuda")),
+     dict(k_stage=st[0], v_stage=st[1], staged_n=9, layer=1))
+# Mistral's window and Gemma-2's head dim 256 with the softcap (and its
+# global layers), linear in bf16 and int8 at T 1 and 5, paged at T 1
 lens = torch.tensor([300, 4500, 6100, 8000], dtype=torch.int32, device="cuda")
-for name, E, QH, KHf, cap, qs in (("mistral_window", 128, 32, 8, None, 1.0),
-                                  ("gemma2_e256_softcap", 256, 8, 4, 50.0, 40.0)):
-    caches = (randn(2, 4, KHf, 8032, E), randn(2, 4, KHf, 8032, E))
+for name, E, QH, KHf, cap, qs, win in (("mistral_window", 128, 32, 8, None, 1.0, 4096),
+                                       ("gemma2_e256_softcap", 256, 8, 4, 50.0, 40.0, 4096),
+                                       ("gemma2_global", 256, 8, 4, 50.0, 40.0, None)):
     st = (randn(4, 2, KHf, 32, E), randn(4, 2, KHf, 32, E))
-    for T in (1, 5):
-        case(f"{name}_T{T}", (randn(4, QH, T, E, scale=qs), *caches, lens),
-             dict(k_stage=st[0], v_stage=st[1], staged_n=5, layer=1, window=4096, softcap=cap))
+    kw = dict(k_stage=st[0], v_stage=st[1], staged_n=5, layer=1, window=win, softcap=cap)
+    for mode in ("bf16", "int8"):
+        caches, scales = cache((2, 4, KHf, 8032, E), mode == "int8")
+        for T in (1, 5):
+            sfx = "" if mode == "bf16" else "_int8"
+            case(f"{name}{sfx}_T{T}", (randn(4, QH, T, E, scale=qs), *caches, lens, *scales), kw)
+        del caches, scales
+        if win is None:
+            continue
+        counts = [-(-int(n) // 512) for n in lens.tolist()]
+        pools, pscales = cache((2, sum(counts) + 4, KHf, 512, E), mode == "int8")
+        perm = table_for(1, sum(counts) + 4, sum(counts) + 4)[0]
+        table = torch.zeros((4, max(counts) + 1), dtype=torch.int32, device="cuda")
+        for b, c in enumerate(counts):  # each slot its own pages, shuffled
+            table[b, :c] = perm[sum(counts[:b]):sum(counts[:b]) + c]
+        case(f"paged_{name}{'' if mode == 'bf16' else '_int8'}",
+             (randn(4, QH, 1, E, scale=qs), *pools, table, lens, *pscales), kw, paged=True)
+        del pools, pscales
+# the paged deployment: pools (32, 256, 8, 128, 128), lengths 512..640, staged 9;
+# TinyLlama's E 64 in the same geometry with KH 4
+plen = torch.randint(512, 641, (32,), generator=g, device="cuda", dtype=torch.int32)
+table = table_for(32, 256, 8)
+for name, KH, E in (("paged", 8, 128), ("paged_e64", 4, 64)):
+    st = (randn(32, 32, KH, 32, E), randn(32, 32, KH, 32, E))
+    for mode in ("bf16", "int8"):
+        pools, pscales = cache((32, 256, KH, 128, E), mode == "int8")
+        case(f"{name}_{mode}", (randn(32, 32, 1, E), *pools, table, plen, *pscales),
+             dict(k_stage=st[0], v_stage=st[1], staged_n=9, layer=3), paged=True)
+        del pools, pscales
 """
 
 _CARD = r"""

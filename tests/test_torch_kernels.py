@@ -26,13 +26,22 @@ dQ and dK/dV with the window, the softcap (where it binds), head dim 256
 and segment ids with the softcap, and decode attention's speculative
 verify mode (T > 1, and past 32 rows a block its split over z-blocks),
 against which a wrong intra-draft mask or a dropped z-block must fail.
+Decode attention also runs at head dims 32 and 64 (padded inside the
+kernel) in bf16, int8 and f32, linear, paged and verify, under forced
+split counts (the same result within the tolerance, and the same bits
+on a rerun); flash attention takes f32 operands (rounded to bf16 at the
+op boundary, within 1e-2 per tile of the plain f32 version); and the
+CLI's default model, f32 `tiny` at head dim 32, serves on the card with
+the CPU engine's greedy streams (parted only at a near tie of the plain
+forward's logits, within 1e-2 x max|logit|).
 """
 
 import pytest
 import torch
 
 from nnop_tpu_torch.ops import naive
-from nnop_tpu_torch.ops.attention_decode import decode_attention
+from nnop_tpu_torch.models.llama import LlamaConfig, forward, init_params
+from nnop_tpu_torch.ops.attention_decode import MAX_SPLIT, decode_attention, launch_decode
 from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
 from nnop_tpu_torch.ops.flash_attention_bwd import (
@@ -883,3 +892,141 @@ def test_flash_attention_padded_head_dims(gen, E):
     grads = torch.autograd.grad(flash_attention(*leaves, causal=True), leaves, do)
     for g, w in zip(grads, naive.naive_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)):
         assert g.shape == w.shape and _tile_rel_err(g, w) <= 1e-2
+
+
+def _small_e_inputs(gen, E, kind, mode):
+    """Decode operands at head dim E: bf16, int8 (+ scales) or f32 caches
+    (q f32 with the f32 cache), linear or paged, T 1, or T 5 (verify)."""
+    q, caches, scales, lengths, table, stage = _decode_features_inputs(
+        gen, "paged" if mode == "paged" else "linear", E, 2, 8, kind == "int8")
+    if mode == "verify":
+        q = _bf(gen, 4, 8, 5, E)
+    if kind == "f32":
+        q, caches = q.float(), tuple(c.float() for c in caches)
+    if mode == "paged":
+        return paged_decode_attention, naive.naive_paged_decode_attention, (
+            q, *caches, table, lengths, *scales), stage
+    return decode_attention, naive.naive_decode_attention, (q, *caches, lengths, *scales), stage
+
+
+@pytest.mark.parametrize("mode", ["linear", "paged", "verify"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("E", [32, 64])
+def test_decode_kernel_small_head_dims(gen, E, kind, mode):
+    """Kernel D at head dims 32 (`tiny`) and 64 against the plain version,
+    with the window: every cache type, linear and paged, T 1 and T 5."""
+    op, plain, args, (ks, vs) = _small_e_inputs(gen, E, kind, mode)
+    kw = dict(k_stage=ks, v_stage=vs, staged_n=7, layer=1, window=40)
+    before = op.mode_launches.get((E, kind == "int8", True, False, mode == "verify"), 0)
+    got = op(*args, **kw)
+    assert op.mode_launches[(E, kind == "int8", True, False, mode == "verify")] == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape and (got[0] == 0).all()
+    assert _tile_rel_err(got, plain(*args, **kw)) <= 1e-2
+
+
+def test_decode_kernel_head_dim_refused(gen):
+    """Head dims the kernel cannot take raise ValueError naming E."""
+    for E in (40, 272):
+        q, cache = _bf(gen, 2, 4, 1, E), _bf(gen, 2, 2, 64, E)
+        with pytest.raises(ValueError, match=f"E={E}"):
+            decode_attention(q, cache, cache, torch.tensor([3, 9], dtype=torch.int32,
+                                                          device="cuda"))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, MAX_SPLIT])
+@pytest.mark.parametrize("T,window", [(1, None), (5, 300)], ids=["T1", "verify_window300"])
+def test_decode_kernel_forced_splits(gen, T, window, n_split):
+    """The split-KV combine: any split count gives the plain version's
+    result within the tolerance, and a rerun gives the same bits."""
+    NL, B, KH, S, E = 2, 4, 4, 2112, 128
+    caches = (_bf(gen, NL, B, KH, S, E), _bf(gen, NL, B, KH, S, E))
+    stage = (_bf(gen, B, NL, KH, 32, E), _bf(gen, B, NL, KH, 32, E))
+    lengths = torch.tensor([0, 100, 1000, 2100], dtype=torch.int32, device="cuda")
+    q = _bf(gen, B, 16, T, E)
+    kw = dict(k_stage=stage[0], v_stage=stage[1], staged_n=9, layer=1, window=window,
+              softcap=None)
+    got = launch_decode("decode_attention", q, *caches, lengths, None, None, None,
+                        scale=E ** -0.5, n_split=n_split, **kw)
+    again = launch_decode("decode_attention", q, *caches, lengths, None, None, None,
+                          scale=E ** -0.5, n_split=n_split, **kw)
+    assert torch.equal(got, again) and (got[0] == 0).all()
+    kw.pop("softcap")
+    assert _tile_rel_err(got, naive.naive_decode_attention(q, *caches, lengths, **kw)) <= 1e-2
+
+
+def test_decode_kernel_refuses_a_short_workspace(gen, monkeypatch):
+    """The kernel sizes its split workspace by its own row rule: a
+    workspace sized by a rule that gives fewer rows (16-row blocks where
+    a verify step of 40 rows takes two 32-row blocks: 48 rows, not 64) is
+    refused at launch, not written past."""
+    import nnop_tpu_torch.ops.attention_decode as ad
+
+    NL, B, KH, S, E, T = 1, 2, 2, 256, 128, 5
+    caches = (_bf(gen, NL, B, KH, S, E), _bf(gen, NL, B, KH, S, E))
+    stage = (_bf(gen, B, NL, KH, 8, E), _bf(gen, B, NL, KH, 8, E))
+    q, lengths = _bf(gen, B, 16, T, E), torch.tensor([50, 200], dtype=torch.int32, device="cuda")
+    kw = dict(scale=E ** -0.5, k_stage=stage[0], v_stage=stage[1], staged_n=T, layer=0,
+              window=None, softcap=None, n_split=2)
+    assert ad.block_rows(T, 8, E, False) == (32, 2)
+    launch_decode("decode_attention", q, *caches, lengths, None, None, None, **kw)
+    monkeypatch.setattr(ad, "block_rows", lambda T, G, E, paged: (16, -(-T // (16 // G))))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_decode("decode_attention", q, *caches, lengths, None, None, None, **kw)
+
+
+@pytest.mark.parametrize("E", [32, 128])
+def test_flash_attention_f32_operands(gen, E):
+    """f32 q, k, v through flash_attention on the card: rounded to bf16
+    at the op boundary (the kernels run), o and the gradients in f32,
+    within 1e-2 per tile of the plain f32 version."""
+    q, k, v, do = (torch.randn(s, generator=gen, device="cuda")
+                   for s in ((2, 8, 150, E), (2, 2, 150, E), (2, 2, 150, E), (2, 8, 150, E)))
+    before = flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(
+        n + 1 for n in before)
+    kw = dict(causal=True, scale=E ** -0.5)
+    o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    assert o.dtype == torch.float32 and _tile_rel_err(o, o_ref) <= 1e-2
+    for g, w in zip(grads, naive.naive_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)):
+        assert g.dtype == torch.float32 and _tile_rel_err(g, w) <= 1e-2
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {key: _to(val, device) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(val, device) for val in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def test_tiny_f32_engine_on_cuda(gen):
+    """The CLI's default model (f32 `tiny`, head dim 32) served on the
+    card: C at prefill and D and E at decode, in f32 through bf16
+    operands. Its greedy streams are the CPU engine's (the plain
+    versions, in f32), or part only where the plain forward's logits of
+    the two tokens tie within 1e-2 x max|logit|."""
+    from nnop_tpu_torch.runtime.engine import Engine
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    prompts = [[1, 2, 3, 1, 2, 3], list(range(40)), [7] * 17, list(range(200, 100, -1))]
+    before = decode_attention.launches, flash_fwd.launches
+    streams = []
+    for p in (params, _to(params, "cuda")):
+        eng = Engine(p, cfg, max_batch=4, max_seq=256)
+        reqs = [eng.submit(pr, max_new_tokens=24) for pr in prompts]
+        eng.run()
+        streams.append([r.out for r in reqs])
+    assert decode_attention.launches > before[0] and flash_fwd.launches > before[1]
+    for prompt, cpu, card in zip(prompts, *streams):
+        assert len(cpu) == len(card) == 24
+        i = next((i for i, (a, b) in enumerate(zip(cpu, card)) if a != b), None)
+        if i is None:
+            continue
+        toks = torch.tensor([prompt + cpu[:i]])
+        logits = forward(params, toks, cfg, plain=True)[0, -1]
+        gap = (logits[cpu[i]] - logits[card[i]]).abs().item()
+        assert gap <= 1e-2 * logits.abs().max().item(), (i, gap)
