@@ -617,6 +617,11 @@ def phase_train_kernels(p3, gen, randn):
               bound(nbytes(q, k, v, o, lse), 4 * 128 * pairs, "bf16"),
               library_ms("flash_fwd", lambda: sdpa(q, k, v), n=5))
     del o_ref, lse_ref
+    again = flash_fwd(q, k, v, **kw)
+    check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+          "flash_fwd: two runs on the same inputs differ")
+    print("phase 3 flash_fwd: two runs at the 8B training geometry are bit-identical (o, lse)")
+    del again
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
     ref = plain_bwd(q, k, v, o, lse, do, **kw)
@@ -939,6 +944,11 @@ def phase_family_kernels(p3, gen, randn):
             sdpa_kw = dict(is_causal=True) if causal_only else dict(attn_mask=mask)
             library = library_ms(name, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=E ** -0.5, enable_gqa=True, **sdpa_kw))
+        elif lib:  # the softcap: compiled flex_attention, the mask as its block mask
+            library, flex_o = flex_verify_ms(name, q, k, v, mask[None, None], softcap)
+            if flex_o is not None:
+                print(f"phase 3 {name} [{case}]: flex_attention {library:.4f} ms, its o against "
+                      f"the plain version: tile relative error {tile_rel_err(flex_o, want):.3e}")
         p3.report(name, case, tile_rel_err(o, want), ATTN_REL_TOL, ATTN_REL_WHY + " (o bf16)",
                   device_ms(lambda: flash_fwd(q, k, v, **kw)), device_ms(plain, n=2, reps=3),
                   bound(moved, 4 * E * QH * int(mask.sum()), "bf16"), library, main,
@@ -971,6 +981,8 @@ def phase_family_kernels(p3, gen, randn):
     # q scaled so that the softcap binds
     g2 = dict(QH=8, KH=4, QL=512, KL=6656, E=256, offset=5632, n_valid=6144)
     g_chunk = "Gemma-2 chunk: q (1, 8, 512, 256) at offset 5632, kv (1, 4, 6656, 256)"
+    # 8 heads x 512 rows are 32 blocks of 128 rows, at most half the card:
+    # C runs them as 64 blocks of 64 rows
     flash_case("flash_fwd_e256_softcap", f"{g_chunk}, softcap 50 (binding: q x {BIG_Q:g}), window "
                "4096", **g2, window=WINDOW, softcap=50.0, q_scale=BIG_Q, main=True,
                faults=[no_cap, wide(WINDOW)])
@@ -1994,11 +2006,35 @@ def phase_opset_kernels(p3, gen, randn):
                  dq=(io + nbytes(do, q) + 2 * 32 * L * 4, 3 * 2 * E * visible),
                  dkv=(io + nbytes(do, k, v) + 2 * 32 * L * 4, 4 * 2 * E * visible))
     kw = dict(causal=True, scale=E ** -0.5, segment_ids=(seg, seg))
+    # C skips the key tiles (64 keys in this mode) whose range of ids misses
+    # its block's: a range rule one tile too tight drops each block's first
+    # live tile, each document's first 64 keys
+    tight = torch.ones((2, L), dtype=torch.bool, device=dev)
+    for d in range(4):
+        tight[:, d * 1024:d * 1024 + 64] = False
     attn_case("segments", "attn8b_seg: q (2, 32, 4096, 128), kv (2, 8, 4096, 128), causal, "
               "4 documents of 1024", q, k, v, do, kw, main=True,
-              faults=[("a document boundary one key later", dict(segment_ids=(seg, moved)))],
+              faults=[("a document boundary one key later", dict(segment_ids=(seg, moved))),
+                      ("the key-tile skip one tile too tight (each document's first 64 keys "
+                       "dropped)", dict(kpad_mask=tight))],
               timed=timed, lib_kw=dict(attn_mask=doc_mask))
-    del q, k, v, do, seg, moved, doc_mask, causal_mask
+    # the same documents with their positions shuffled (ids unsorted: every
+    # key tile's range meets every block's, nothing may be skipped wrongly)
+    perm = torch.randperm(L, generator=gen, device=dev)
+    shuffled = seg[:, perm].contiguous()
+    kw = dict(causal=True, scale=E ** -0.5, segment_ids=(shuffled, shuffled))
+    o = flash_fwd(q, k, v, **kw)[0]
+
+    def plain():
+        return _by_batch(lambda *t, **k_: naive.naive_attention(*t, return_lse=True, **k_),
+                         q, k, v, **kw)[0]
+
+    o_ref = plain()
+    p3.report("flash_fwd_segments", "attn8b_seg's documents shuffled (ids unsorted), causal",
+              tile_rel_err(o, o_ref), ATTN_REL_TOL, OPSET_ATTN_WHY,
+              device_ms(lambda: flash_fwd(q, k, v, **kw), n=5), device_ms(plain, n=1, reps=3),
+              measure="tile relative error", abs_err=max_err(o, o_ref))
+    del q, k, v, do, seg, moved, doc_mask, causal_mask, tight, shuffled, o, o_ref
     torch.cuda.empty_cache()
 
     # head dims the kernels reach by zero-padding: 32 -> 64, 96 -> 128
@@ -3058,7 +3094,9 @@ def phase_train(tag, cfg, expected, counters, idle, seq=4096):
     print(f"{tag} profile: step {steps} {step_ms[-1]:.1f} ms wall (profiled); device busy "
           f"{busy:.1f} ms = {100 * busy / step_ms[-1]:.1f}% of it, {100 * busy / med:.1f}% of the "
           "median unprofiled step; kernels by device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the twelve longest, and every attention kernel
+    for e in ranked[:12] + [e for e in ranked[12:] if "flash_" in e.key]:
         print(f"{tag} profile:   {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls "
               f" {e.key[:90]}")
     return launches
@@ -3589,7 +3627,7 @@ def main():
     qmm_src, qmm_rep = "nnop_tpu_torch/csrc/qmm.cu", "nnop_tpu/ops/quantized_matmul.py"
     paged_rep, flush_rep = "nnop_tpu/ops/attention_decode_paged.py:430", "nnop_tpu/ops/kv_write.py"
     gmm_src, gmm_rep = "nnop_tpu_torch/csrc/gmm.cu", "nnop_tpu/ops/grouped_matmul.py"
-    flash_src, flash_rep = "nnop_tpu_torch/csrc/flash_fwd.cu", "nnop_tpu/ops/flash_attention.py"
+    flash_src, flash_rep = "nnop_tpu_torch/csrc/flash_fwd.cuh", "nnop_tpu/ops/flash_attention.py"
     decode_rep = "nnop_tpu/ops/attention_decode.py:753"
     bwd_src, bwd_rep = "nnop_tpu_torch/csrc/flash_bwd.cuh", "nnop_tpu/ops/flash_attention_bwd.py"
     # entry name -> (counter, route, source, the TPU kernel it replaces);
@@ -3599,7 +3637,7 @@ def main():
                      "nnop_tpu/ops/rms_norm.py:120"),
         "llama_rope": (Counter("llama_rope", llama_rope), "triton", "nnop_tpu_torch/ops/rope.py",
                        "nnop_tpu/ops/rope.py:102"),
-        "flash_fwd": (Counter("flash_fwd", flash_fwd), "cuda", "nnop_tpu_torch/csrc/flash_fwd.cu",
+        "flash_fwd": (Counter("flash_fwd", flash_fwd), "cuda", "nnop_tpu_torch/csrc/flash_fwd.cuh",
                       "nnop_tpu/ops/flash_attention.py:1309"),
         "decode_attention": (Counter("decode_attention", decode_attention, minus="int8_launches"),
                              "cuda", decode_src, "nnop_tpu/ops/attention_decode.py:753"),

@@ -1,9 +1,10 @@
 """Flash attention forward: the public API over one CUDA kernel for Hopper.
 
-`flash_fwd` wraps csrc/flash_fwd.cu, which replaces
-nnop_tpu/ops/flash_attention.py:_fwd_impl and the TPU dispatch zoo under
-it (the rect, causal-strip, rect-static, window and chunked kernels): one
-FA-2 kernel serves causal bucketed prefill and chunked prefill (causal
+`flash_fwd` wraps kernel C (csrc/flash_fwd.cuh, its C entry in
+csrc/flash_fwd.cu), which replaces nnop_tpu/ops/flash_attention.py:_fwd_impl
+and the TPU dispatch zoo under it (the rect, causal-strip, rect-static,
+window and chunked kernels): one wgmma kernel fed by a TMA ring serves
+causal bucketed prefill and chunked prefill (causal
 from a row offset with a key-padding mask), with the sliding window, the
 score softcap, and the pair bias and segment ids (packed documents). See
 the kernel source for what bounds it and how. The launches with a window
@@ -109,6 +110,11 @@ def _segments(segment_ids, q, k):
     return q_seg, kv_seg
 
 
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def count_launch(fn, E, pair, segment_ids, window, softcap):
     """One launch of an attention kernel (C, dQ or dK/dV) on fn's counters."""
     fn.launches += 1
@@ -162,6 +168,8 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, causal_offset: int = 0,
         if tuple(pair.shape) != (B, QH, QL, KL):
             raise ValueError(f"pair shape {tuple(pair.shape)}, expected {(B, QH, QL, KL)}")
     q_seg, kv_seg = _segments(segment_ids, q, k) if segment_ids is not None else (None, None)
+    # the kernel reads q, k, v and the pair by TMA, which needs 16-byte aligned bases
+    q, k, v, pair = (_aligned(t) for t in (q, k, v, pair))
     o = torch.empty_like(q)
     lse = torch.empty((B, QH, QL), dtype=torch.float32, device=q.device)
     if o.numel() == 0:

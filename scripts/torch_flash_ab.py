@@ -7,13 +7,18 @@ Each ROOT is a checkout holding `nnop_tpu_torch/`. Every ROOT runs in a
 process of its own (it builds and imports its own kernels), at the shapes
 of `chip_smoke.py` phase 3's main cases.
 
-`--kernel flash` (the default): the featureless flash-attention kernels
-C, dQ and dK/dV. C at q (1, 32, 512, 128) over kv (1, 8, 1536, 128) from
-row offset 1024 (a prefill chunk), C causal at the 8B training geometry
-q (2, 32, 4096, 128), kv (2, 8, 4096, 128), and dQ and dK/dV there; then
-the same three kernels there with a pair bias (2, 32, 4096, 4096) bf16
-and with segment ids (four documents of 1024), where the ROOT's kernels
-take them (null where they raise).
+`--kernel flash` (the default): C at every timed row of phase 3 (the
+chunk q (1, 32, 512, 128) at offset 1024 over kv (1, 8, 1536, 128) with
+kpad, the offset-100 chunk, causal L 512 and 300, non-causal 100 x 300,
+the 8B training geometry q (2, 32, 4096, 128), kv (2, 8, 4096, 128),
+causal L 8192, Mistral's window chunk (q (1, 32, 512, 128) at offset 5632
+over kv (1, 8, 6656, 128), kpad < 6144, window 4096; without the window;
+with the softcap 5), Gemma-2's E 256 chunk (q (1, 8, 512, 256) x 40, kv
+(1, 4, 6656, 256), softcap 50 with and without the window 4096; softcap 5;
+the window alone), Gemma-2B's MQA at L 300, windows 17 and 33, segment ids
+(four documents of 1024, and the same shuffled), the pair bias (2, 32,
+4096, 4096) bf16); then dQ and dK/dV at the training geometry,
+featureless, with the pair and with the segment ids.
 
 `--kernel decode`: decode attention (kernel D) at `chip_smoke.py` phase
 3's shapes, at T 1 and T 5 (the speculative verify): q (8, 32, T, 128)
@@ -73,27 +78,58 @@ _FLASH = r"""
 from nnop_tpu_torch.ops.flash_attention import flash_fwd
 from nnop_tpu_torch.ops.flash_attention_bwd import flash_bwd_dkv, flash_bwd_dq
 
-q, k, v = randn(1, 32, 512, 128), randn(1, 8, 1536, 128), randn(1, 8, 1536, 128)
-kw = dict(causal=True, scale=128 ** -0.5, causal_offset=1024)
-res["flash_fwd_chunk_ms"] = ms(lambda: flash_fwd(q, k, v, **kw), 20)
+def kpad(KL, n):
+    return (torch.arange(KL, device="cuda") < n)[None]
+
+# C at every timed row of chip_smoke.py phase 3: (name, QH, KH, QL, KL, E, q scale, kwargs)
+mistral = dict(causal=True, causal_offset=5632, kpad_mask=kpad(6656, 6144))
+perm = torch.randperm(4096, generator=g, device="cuda")
+docs = torch.arange(4, device="cuda", dtype=torch.int32).repeat_interleave(1024).expand(2, 4096)
+shuffled = docs[:, perm].contiguous()
+C_ROWS = [
+    ("flash_fwd_chunk", 1, 32, 8, 512, 1536, 128, 1.0,
+     dict(causal=True, causal_offset=1024, kpad_mask=kpad(1536, 1100))),
+    ("flash_fwd_offset100", 1, 32, 8, 512, 1024, 128, 1.0,
+     dict(causal=True, causal_offset=100, kpad_mask=kpad(1024, 612))),
+    ("flash_fwd_causal512", 1, 32, 8, 512, 512, 128, 1.0, dict(causal=True)),
+    ("flash_fwd_causal300", 1, 32, 8, 300, 300, 128, 1.0, dict(causal=True)),
+    ("flash_fwd_noncausal_100x300", 1, 32, 8, 100, 300, 128, 1.0, dict(causal=False)),
+    ("flash_fwd_train", 2, 32, 8, 4096, 4096, 128, 1.0, dict(causal=True)),
+    ("flash_fwd_causal8192", 1, 32, 8, 8192, 8192, 128, 1.0, dict(causal=True)),
+    ("flash_fwd_mistral_window", 1, 32, 8, 512, 6656, 128, 1.0, dict(mistral, window=4096)),
+    ("flash_fwd_mistral_nowindow", 1, 32, 8, 512, 6656, 128, 1.0, mistral),
+    ("flash_fwd_mistral_window_softcap5", 1, 32, 8, 512, 6656, 128, 4.0,
+     dict(mistral, window=4096, softcap=5.0)),
+    ("flash_fwd_gemma2_e256_softcap_window", 1, 8, 4, 512, 6656, 256, 40.0,
+     dict(mistral, window=4096, softcap=50.0)),
+    ("flash_fwd_gemma2_e256_softcap", 1, 8, 4, 512, 6656, 256, 40.0, dict(mistral, softcap=50.0)),
+    ("flash_fwd_gemma2_e256_softcap5", 1, 8, 4, 512, 6656, 256, 4.0, dict(mistral, softcap=5.0)),
+    ("flash_fwd_gemma2_e256_window", 1, 8, 4, 512, 6656, 256, 1.0, dict(mistral, window=4096)),
+    ("flash_fwd_gemma2b_mqa300", 1, 8, 1, 300, 300, 256, 1.0, dict(causal=True)),
+    ("flash_fwd_window17", 1, 32, 8, 300, 400, 128, 1.0,
+     dict(causal=True, causal_offset=100, window=17)),
+    ("flash_fwd_window33", 1, 32, 8, 300, 400, 128, 1.0,
+     dict(causal=True, causal_offset=100, window=33)),
+    ("flash_fwd_segments", 2, 32, 8, 4096, 4096, 128, 1.0,
+     dict(causal=True, segment_ids=(docs, docs))),
+    ("flash_fwd_segments_shuffled", 2, 32, 8, 4096, 4096, 128, 1.0,
+     dict(causal=True, segment_ids=(shuffled, shuffled))),
+]
+for name, B, QH, KH, QL, KL, E, qs, extra in C_ROWS:
+    q, k, v = randn(B, QH, QL, E, scale=qs), randn(B, KH, KL, E), randn(B, KH, KL, E)
+    kw = dict(scale=E ** -0.5, **extra)
+    res[name + "_ms"] = ms(lambda: flash_fwd(q, k, v, **kw), 5 if QL >= 4096 else 20)
 q, k, v, do = (randn(2, h, 4096, 128) for h in (32, 8, 8, 32))
 kw = dict(causal=True, scale=128 ** -0.5)
+pair = randn(2, 32, 4096, 4096)
+res["flash_fwd_pair_ms"] = ms(lambda: flash_fwd(q, k, v, pair=pair, **kw), 5)
 o, lse = flash_fwd(q, k, v, **kw)
 _, delta = flash_bwd_dq(q, k, v, o, lse, do, **kw)
-res["flash_fwd_train_ms"] = ms(lambda: flash_fwd(q, k, v, **kw), 5)
 res["flash_bwd_dq_ms"] = ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw), 5)
 res["flash_bwd_dkv_ms"] = ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw), 5)
-seg = torch.arange(4, device="cuda", dtype=torch.int32).repeat_interleave(1024).expand(2, 4096)
-for name, extra in (("pair", dict(pair=randn(2, 32, 4096, 4096))),
-                    ("segments", dict(segment_ids=(seg, seg)))):
-    try:
-        o, lse = flash_fwd(q, k, v, **kw, **extra)
-    except NotImplementedError:
-        res.update({f"{k_}_{name}_ms": None for k_ in ("flash_fwd", "flash_bwd_dq",
-                                                         "flash_bwd_dkv")})
-        continue
+for name, extra in (("pair", dict(pair=pair)), ("segments", dict(segment_ids=(docs, docs)))):
+    o, lse = flash_fwd(q, k, v, **kw, **extra)
     delta = flash_bwd_dq(q, k, v, o, lse, do, **kw, **extra)[1]
-    res[f"flash_fwd_{name}_ms"] = ms(lambda: flash_fwd(q, k, v, **kw, **extra), 5)
     res[f"flash_bwd_dq_{name}_ms"] = ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, **kw, **extra), 5)
     res[f"flash_bwd_dkv_{name}_ms"] = ms(
         lambda: flash_bwd_dkv(q, k, v, lse, delta, do, **kw, **extra), 5)

@@ -195,6 +195,103 @@ def test_flash_kernel_softcap_binds(gen, case, window):
     assert (got[0].float() - uncapped.float()).abs().max().item() > TOL["atol"]
 
 
+# Kernel C's edges: lengths just under, at and over its 128-row blocks (64
+# where a call has few) and its key tiles (64 keys; 32 at head dim 256
+# with a pair or segment ids), a block whose second warpgroup holds no row
+# (QL 60) or one (65), an offset that is no tile multiple, kpad ending
+# mid-tile, GQA groups 1, 4 and 8 and MQA, windows below a tile
+FLASH_EDGE_CASES = {
+    # name: (E, QH, KH, QL, KL, causal, offset, n_valid, window)
+    **{f"causal_L{n}": (128, 8, 2, n, n, True, 0, None, None) for n in (1, 63, 64, 65, 127,
+                                                                        129, 300)},
+    **{f"noncausal_q{m}_k{n}": (128, 8, 2, m, n, False, 0, None, None)
+       for m, n in ((1, 300), (60, 129), (65, 127), (129, 63))},
+    "offset77_kpad301": (128, 8, 2, 200, 500, True, 77, 301, None),
+    "offset77_kpad301_noncausal": (128, 8, 2, 200, 500, False, 77, 301, None),
+    "gqa1": (128, 4, 4, 129, 129, True, 0, None, None),
+    "gqa8": (128, 16, 2, 129, 129, True, 0, None, None),
+    "mqa": (128, 8, 1, 300, 300, True, 0, None, None),
+    "E64_L129_offset77": (64, 8, 2, 129, 300, True, 77, 250, None),
+    "E64_mqa_L65": (64, 8, 1, 65, 65, True, 0, None, None),
+    "E256_L129_offset77": (256, 8, 2, 129, 300, True, 77, 250, None),
+    "E256_L63": (256, 8, 4, 63, 63, True, 0, None, None),
+    "E256_noncausal_q65_k129": (256, 8, 1, 65, 129, False, 0, None, None),
+    "window1": (128, 8, 2, 300, 300, True, 0, None, 1),
+    "window17_offset77": (128, 8, 2, 200, 500, True, 77, 301, 17),
+    "E256_window17": (256, 8, 4, 129, 300, True, 100, None, 17),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_EDGE_CASES))
+def test_flash_kernel_edges(gen, case):
+    """C against the plain version: o and lse within 2e-2, o within 1e-2
+    per 64-row tile; rows that see no key give zeros."""
+    E, QH, KH, QL, KL, causal, offset, n_valid, window = FLASH_EDGE_CASES[case]
+    q, k, v = _bf(gen, 2, QH, QL, E), _bf(gen, 2, KH, KL, E), _bf(gen, 2, KH, KL, E)
+    kw = dict(causal=causal, scale=E ** -0.5, causal_offset=offset, window=window)
+    if n_valid is not None:
+        kw["kpad_mask"] = (torch.arange(KL, device="cuda") < n_valid)[None].repeat(2, 1)
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    assert _tile_rel_err(o, o_ref) <= 1e-2
+
+
+@pytest.mark.parametrize("E", [32, 64, 96, 128, 256])
+def test_flash_attention_head_dims(gen, E):
+    """flash_attention at every head dim class (32 and 96 zero-padded to
+    the kernel's 64 and 128) at 129 rows over 129 keys, causal."""
+    q, k, v = _bf(gen, 2, 8, 129, E), _bf(gen, 2, 2, 129, E), _bf(gen, 2, 2, 129, E)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=True)
+    o_ref = naive.naive_attention(q, k, v, causal=True, scale=E ** -0.5)
+    assert o.shape == q.shape and _tile_rel_err(o, o_ref) <= 1e-2
+
+
+# Segment ids the kernel's key-tile skip must treat exactly: shuffled
+# (unsorted) ids, and documents whose edges fall inside key tiles and row
+# blocks; with the pair and with the softcap, which share the skip
+SEGMENT_EDGE_CASES = {
+    # name: (E, causal, layout, pair dtype or None, softcap)
+    "shuffled_noncausal": (128, False, "shuffled", None, None),
+    "shuffled_causal": (128, True, "shuffled", None, None),
+    "cross_tiles_causal": (128, True, "cross", None, None),
+    "cross_tiles_E64": (64, True, "cross", None, None),
+    "cross_tiles_E256_softcap": (256, True, "cross", None, 5.0),
+    "shuffled_E256_softcap": (256, False, "shuffled", None, 5.0),
+    "cross_tiles_pair_f32": (128, True, "cross", torch.float32, None),
+    "shuffled_pair_bf16": (64, False, "shuffled", torch.bfloat16, None),
+}
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_EDGE_CASES))
+def test_flash_kernel_segment_skip(gen, case):
+    """C with segment ids against the plain version per 64-row tile (a
+    key tile skipped wrongly drops whole documents' keys and fails);
+    without the ids the output differs (the ids bind)."""
+    E, causal, layout, pdt, softcap = SEGMENT_EDGE_CASES[case]
+    QL = KL = 300
+    if layout == "cross":  # documents of 61, 2, 97 and 140 rows: edges inside tiles
+        seg = _seg_ids(300, [61, 63, 160]).expand(2, 300).contiguous()
+    else:
+        base = torch.arange(4, device="cuda", dtype=torch.int32).repeat_interleave(75)
+        perm = torch.randperm(300, generator=gen, device="cuda")
+        seg = torch.stack([base[perm], base.flip(0)]).contiguous()
+    q, k, v = _bf(gen, 2, 8, QL, E, scale=4.0 if softcap else 1.0), _bf(gen, 2, 2, KL, E), \
+        _bf(gen, 2, 2, KL, E)
+    pair = torch.randn(2, 8, QL, KL, generator=gen, device="cuda").to(pdt) if pdt else None
+    kw = dict(causal=causal, scale=E ** -0.5, pair=pair, segment_ids=(seg, seg), softcap=softcap)
+    before = flash_fwd.segment_launches
+    o, lse = flash_fwd(q, k, v, **kw)
+    assert flash_fwd.segment_launches == before + 1
+    o_ref, lse_ref = naive.naive_attention(q, k, v, return_lse=True, **kw)
+    assert _tile_rel_err(o, o_ref) <= 1e-2
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    without = naive.naive_attention(q, k, v, **dict(kw, segment_ids=None))
+    assert _tile_rel_err(o, without) > 1e-2
+
+
 def _decode_features_inputs(gen, mode, E, KH, QH, quantized):
     """Stacked caches or pools (2 layers) and staging at head dim E, with
     lengths [0, 1, 65, 200] (and a shuffled table for the paged mode)."""
