@@ -164,6 +164,12 @@ and E 32 f32 (`tiny`); and the library yardsticks of D's T = 1 and paged
 bf16 rows (SDPA over the joined live K/V with a boolean mask; with the
 softcap compiled flex_attention) and of E's bf16 flushes (index_put_ of
 the staged rows).
+Phase 3 also holds the AdamW kernel on Mistral-7B's 8-layer leaves (bf16
+params and gradients, f32 moments; 2.007 B parameters, 22 bytes each)
+against the plain eager update, one leaf at a time from the same state:
+mu and nu within 1e-6 of the leaf's largest, p within one bf16 ulp; the
+step's time against its byte bound; no library call takes bf16 params
+with f32 moments.
 Phase 3 also holds the grouped backward at Mixtral's training shapes: dw
 (the new kernel) and dx (kernel I on the transposed experts), a planted
 fault, two bit-identical dw runs, experts without a row; and the
@@ -513,6 +519,7 @@ def phase_kernels():
     phase_verify_kernels(p3, gen, randn)
     phase_family_train_kernels(p3, gen, randn)
     phase_opset_kernels(p3, gen, randn)
+    phase_adamw_kernel(p3, gen, randn)
     return p3.results
 
 
@@ -700,6 +707,61 @@ def phase_train_kernels(p3, gen, randn):
             p3.report(name, f"{case}: d{which}", tile_rel_err(g, r), BWD_REL_TOL, BWD_REL_WHY,
                       measure="tile relative error", abs_err=max_err(g, r))
         del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
+
+
+ADAMW_WHY = ("the largest |p - plain| in bf16 ulps of max(|p| before, after): the same f32 "
+             "update, divided exactly where the plain path on the card multiplies by a "
+             "scalar's reciprocal, rounded to bf16 once on both sides")
+
+
+def phase_adamw_kernel(p3, gen, randn):
+    """AdamW on the leaves of mistral-7b-8l (the training cell's 75
+    leaves): step 2 of the kernel against the plain update from the same
+    state, leaf by leaf; then one step's time (75 launches) against the
+    byte bound (22 bytes a parameter) and the plain update's."""
+    from nnop_tpu_torch.models.llama import LlamaConfig, init_params
+    from nnop_tpu_torch.ops.adamw import adamw_update_, naive_adamw_update_
+    from nnop_tpu_torch.parallel.tp_llama import tree_leaves
+
+    params = tree_leaves(init_params(gen, LlamaConfig.mistral_7b(n_layers=8)))
+    grads = [randn(*p.shape, scale=1e-2) for p in params]
+    # the moments of a step 1 with gradients of the same scale
+    mus = [randn(*p.shape, scale=1e-3, dtype=torch.float32) for p in params]
+    nus = [randn(*p.shape, scale=3e-4, dtype=torch.float32).square_() for p in params]
+    n = sum(p.numel() for p in params)
+    b1c, b2c = (float(np.float32(1.0) - np.float32(b) ** np.float32(2)) for b in (0.9, 0.999))
+    kw = dict(lr=1e-4, b1=0.9, b2=0.999, b1c=b1c, b2c=b2c, eps=1e-8, wd=0.0)
+    ulps, mom, abs_err = 0.0, 0.0, 0.0
+    for p, g, mu, nu in zip(params, grads, mus, nus):
+        ref = [t.clone() for t in (p, mu, nu)]
+        naive_adamw_update_(ref[0], g, ref[1], ref[2], **kw)
+        p_old = p.clone()
+        adamw_update_(p, g, mu, nu, **kw)
+        mag = torch.maximum(ref[0].abs(), p_old.abs())
+        ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).float()
+        diff = (p.float() - ref[0].float()).abs()
+        ulps = max(ulps, (diff / ulp).max().item())
+        abs_err = max(abs_err, diff.max().item())
+        mom = max(mom, *((a - b).abs().max().item() / b.abs().max().item()
+                         for a, b in ((mu, ref[1]), (nu, ref[2]))))
+        del ref, p_old, mag, ulp, diff
+    check(mom <= 1e-6, f"adamw_update: mu or nu {mom:.3e} of the leaf's largest > 1e-6")
+
+    def kernel_step():
+        for p, g, mu, nu in zip(params, grads, mus, nus):
+            adamw_update_(p, g, mu, nu, **kw)
+
+    def plain_step():
+        for p, g, mu, nu in zip(params, grads, mus, nus):
+            naive_adamw_update_(p, g, mu, nu, **kw)
+
+    p3.report("adamw_update", f"mistral-7b-8l: {len(params)} leaves, {n / 1e9:.3f} B parameters, "
+              f"bf16 p and g, f32 mu and nu (mu, nu within {mom:.2e} of the leaf's largest)",
+              ulps, 1.0, ADAMW_WHY, device_ms(kernel_step, n=5, reps=3),
+              device_ms(plain_step, n=2, reps=3), bound(22 * n, 20 * n, "f32"), None, True,
+              "bf16 ulps", abs_err=abs_err)
+    del params, grads, mus, nus
     torch.cuda.empty_cache()
 
 
@@ -2737,11 +2799,14 @@ GRAD_WHY = ("bf16 gradients through two layers of bf16 activations rounded in di
             "sqrt(2 (1 - cosine)) it implies; both stricter than the minimum cosine of 0.99")
 
 
-def train_launches(n_layers, moe=False, post_norms=False):
+def train_launches(n_layers, moe=False, post_norms=False, tied=False, adamw=True):
     """The kernel launches of one training step: 2 norms per layer (4 with
     Gemma-2's post norms) + the final norm, q and k rotated per layer, one
     attention per layer; a MoE layer's three grouped products, each with
-    its dx and dw."""
+    its dx and dw; with `adamw`, one AdamW launch per parameter leaf (a
+    layer's norms, 4 attention projections and 3 MLP matrices, or the
+    router and 3 expert stacks; the embedding, the final norm and, unless
+    tied, the head)."""
     norms = (4 if post_norms else 2) * n_layers + 1
     per = {"rms_norm_rstd": norms, "rms_norm_bwd": norms,
            "llama_rope": 2 * n_layers, "llama_rope_bwd": 2 * n_layers, "flash_fwd": n_layers,
@@ -2749,6 +2814,9 @@ def train_launches(n_layers, moe=False, post_norms=False):
     if moe:
         per.update(grouped_matmul=3 * n_layers, grouped_matmul_dx=3 * n_layers,
                    grouped_matmul_dw=3 * n_layers)
+    if adamw:
+        layer = (4 if post_norms else 2) + 4 + (4 if moe else 3)
+        per["adamw_update"] = layer * n_layers + (2 if tied else 3)
     return per
 
 
@@ -2765,7 +2833,7 @@ def family_train_launches(cfg):
     n = cfg.n_layers
     n_win = sum(cfg.layer_window(i) is not None for i in range(n))
     n_cap = n if cfg.attn_softcap is not None else 0
-    per = train_launches(n, post_norms=cfg.post_norms)
+    per = train_launches(n, post_norms=cfg.post_norms, tied=cfg.tie_embeddings)
     for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         per[f"{op}_{'e256_softcap' if n_cap else 'window'}"] = n
         per[f"{op}.window_launches"] = n_win
@@ -2980,9 +3048,9 @@ class _PlainCalls:
         import importlib
 
         self.calls, self.saved = {}, []
-        for name in ("ops.naive", "ops.rms_norm", "ops.rope", "ops.flash_attention",
-                     "ops.flash_attention_bwd", "ops.grouped_matmul", "models.llama",
-                     "models.moe"):
+        for name in ("ops.naive", "ops.adamw", "ops.rms_norm", "ops.rope",
+                     "ops.flash_attention", "ops.flash_attention_bwd", "ops.grouped_matmul",
+                     "models.llama", "models.moe"):
             mod = importlib.import_module(f"nnop_tpu_torch.{name}")
             for attr in dir(mod):
                 if attr.startswith("naive_") and callable(getattr(mod, attr)):
@@ -3600,6 +3668,7 @@ def main():
 
     from nnop_tpu_torch.models.llama import LlamaConfig, init_params, init_quantized_params
     from nnop_tpu_torch.models.quantized import qmatmul, quantize_params
+    from nnop_tpu_torch.ops.adamw import adamw_update_
     from nnop_tpu_torch.ops.attention_decode import decode_attention
     from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
     from nnop_tpu_torch.ops.flash_attention import flash_fwd
@@ -3667,6 +3736,9 @@ def main():
                                      f"{flush_rep}:529"),
         "write_kv_token": (Counter("write_kv_token", write_kv_token), "cuda", flush_src,
                            f"{flush_rep}:85"),
+        "adamw_update": (Counter("adamw_update", adamw_update_), "triton",
+                         "nnop_tpu_torch/ops/adamw.py",
+                         "nnop_tpu/parallel/tp_llama.py:264 (AdamW.update; XLA, no Pallas kernel)"),
         "rms_norm_rstd": (Counter("rms_norm_rstd", rms_norm_fwd), "triton",
                           "nnop_tpu_torch/ops/rms_norm.py", "nnop_tpu/ops/rms_norm.py:120"),
         "rms_norm_bwd": (Counter("rms_norm_bwd", rms_norm_bwd), "triton",
@@ -4018,7 +4090,7 @@ def main():
     #     packed-document training of a 2-layer Llama-3-8B (12b)
     every = [c for c, *_ in entries.values()]
     record({n: v for n, v in phase_opset_autograd(every).items() if "segments" not in n})
-    record(phase_packed(every, dict(train_launches(2), flash_fwd_segments=2,
+    record(phase_packed(every, dict(train_launches(2, adamw=False), flash_fwd_segments=2,
                                     flash_bwd_dq_segments=2, flash_bwd_dkv_segments=2)))
     done("12")
 
@@ -4046,7 +4118,7 @@ def main():
     #     head-dim-64 model at TinyLlama-1.1B's published widths (random
     #     bf16 weights), served and verified speculatively
     record(phase_cli_defaults(counters("decode_attention_e32_f32", "flush_staging", "flash_fwd",
-                                       "flash_bwd_dq", "flash_bwd_dkv")))
+                                       "flash_bwd_dq", "flash_bwd_dkv", "adamw_update")))
     done("15a")
     tcfg = LlamaConfig(vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
                        head_dim=64, hidden_dim=5632, rope_base=10000.0, max_seq_len=2048)

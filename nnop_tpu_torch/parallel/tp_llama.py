@@ -2,11 +2,10 @@
 gradient-norm clipping and the cosine warmup schedule.
 
 Parameter and gradient trees are the JAX package's (dicts and lists of
-tensors). The update runs leaf by leaf and in place, so that no more than
-one leaf's f32 temporaries exist at once (the largest leaves of
-Llama-3-8B, embed and lm_head, hold 525 M values: 2.1 GB per f32 copy);
-the JAX package returns new trees instead. The sharded train step waits
-for the port of the mesh (torch.distributed).
+tensors). The update runs leaf by leaf and in place
+(`ops/adamw.py:adamw_update_`: one kernel launch a CUDA leaf, the plain
+eager update on the CPU); the JAX package returns new trees instead. The
+sharded train step waits for the port of the mesh (torch.distributed).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import math
 
 import numpy as np
 import torch
+
+from nnop_tpu_torch.ops.adamw import adamw_update_, clip_scaled
 
 
 def tree_leaves(tree) -> list:
@@ -53,7 +54,7 @@ def clip_by_global_norm(grads, max_norm: float):
     (tp_llama.py:419-434). Returns (clipped grads, global norm)."""
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
+    return tree_map(lambda g: clip_scaled(g, scale), grads), norm
 
 
 def cosine_warmup_schedule(base_lr: float, warmup_steps: int, total_steps: int,
@@ -103,17 +104,6 @@ class AdamW:
         b2c = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
         for g, mu, nu, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
                                 tree_leaves(state["nu"]), tree_leaves(params)):
-            if scale is not None:
-                g = (g * scale).to(g.dtype)
-            g32 = g.float()
-            mu.mul_(self.b1).add_(g32, alpha=1 - self.b1)
-            nu.mul_(self.b2).addcmul_(g32, g32, value=1 - self.b2)
-            del g32  # at most two f32 temporaries of the leaf from here on
-            den = torch.div(nu, b2c).sqrt_().add_(self.eps)
-            step = torch.div(mu, b1c).div_(den)
-            del den
-            p32 = p.float()  # p itself for an f32 leaf
-            if self.wd:
-                step.add_(p32, alpha=self.wd)
-            p.copy_(p32.sub_(step.mul_(lr)))
+            adamw_update_(p, g, mu, nu, lr=lr, b1=self.b1, b2=self.b2, b1c=b1c, b2c=b2c,
+                          eps=self.eps, wd=self.wd, scale=scale)
         return params, {"mu": state["mu"], "nu": state["nu"], "count": count}

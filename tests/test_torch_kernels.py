@@ -16,7 +16,11 @@ f32 output (G and kernel I's W8A8 mode) must be bit-exact. The
 training kernels (A with rstd, A-bwd, B backward, dQ and dK/dV, the
 grouped product's dx through kernel I and its dw kernel) are held to the
 plain forward and backward formulas of ops/naive.py, and the attention
-backward and the grouped dw must give the same bits on two runs. The op
+backward and the grouped dw must give the same bits on two runs; so must
+the AdamW kernel, held per step to the plain update from the same state
+(moments within 1e-6 of the leaf's largest, params within one ulp of
+their dtype plus 1e-6 of the largest update), in place and without a
+full-size temporary, and through AdamW.update to the CPU's. The op
 set's row kernels (softmax and layer norm, forward and backward, in one
 block and in column chunks) are held per row to a relative error (1e-5
 in f32, 1e-2 in bf16; dw and db 1e-4), and attention with the pair bias
@@ -36,11 +40,13 @@ the CPU engine's greedy streams (parted only at a near tie of the plain
 forward's logits, within 1e-2 x max|logit|).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.models.llama import LlamaConfig, forward, init_params
+from nnop_tpu_torch.ops.adamw import adamw_update_, naive_adamw_update_
 from nnop_tpu_torch.ops.attention_decode import MAX_SPLIT, decode_attention, launch_decode
 from nnop_tpu_torch.ops.attention_decode_paged import paged_decode_attention
 from nnop_tpu_torch.ops.flash_attention import flash_attention, flash_fwd
@@ -69,6 +75,7 @@ from nnop_tpu_torch.ops.quantized_matmul import (
 from nnop_tpu_torch.ops.rms_norm import rms_norm, rms_norm_bwd, rms_norm_fwd
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope, llama_rope_bwd
 from nnop_tpu_torch.ops.softmax import online_softmax, softmax_bwd, softmax_fwd
+from nnop_tpu_torch.parallel.tp_llama import AdamW, tree_leaves
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=0)
@@ -816,6 +823,111 @@ def test_decode_kernel_softcap_binds(gen, quantized, mode, case, window):
     torch.testing.assert_close(got, plain(*args, **kw), **TOL)
     uncapped = plain(*args, **dict(kw, softcap=None))
     assert (got.float() - uncapped.float()).abs().max().item() > TOL["atol"]
+
+
+# ---- training: the AdamW update ------------------------------------------
+
+ADAMW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def _adamw_step_args(step, wd):
+    """The scalars AdamW.update hands the kernel at step `step`."""
+    b1c = float(np.float32(1.0) - np.float32(ADAMW["b1"]) ** np.float32(step))
+    b2c = float(np.float32(1.0) - np.float32(ADAMW["b2"]) ** np.float32(step))
+    return dict(ADAMW, b1c=b1c, b2c=b2c, wd=wd)
+
+
+def _adamw_close(p, mu, nu, p_old, ref):
+    """mu and nu within 1e-6 of the plain update's, relative to the leaf's
+    largest moment; p within one ulp of its dtype at the larger of |p|
+    before and after the step, plus 1e-6 of the leaf's largest update (the
+    f32 roundings of the step: the plain path on the card divides by a
+    scalar through its reciprocal, the kernel divides exactly)."""
+    p_r, mu_r, nu_r = ref
+    for got, want in ((mu, mu_r), (nu, nu_r)):
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    mag = torch.maximum(p_r.abs(), p_old.abs())
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).float()
+    upd = (p_r.float() - p_old.float()).abs().max()
+    assert bool(((p.float() - p_r.float()).abs() <= ulp + 1e-6 * upd).all())
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [4096, 1_000_003, 131_072_000])
+def test_adamw_kernel(gen, n, dtype, wd, clip):
+    """Three steps of the kernel on one leaf (a norm, an odd count,
+    Mistral-7B's embedding), each against the plain update from the same
+    state: one launch a step, in place, no full-size temporary (peak
+    memory under 1 MB above the operands), and the same bits on a rerun."""
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    mu = torch.zeros(n, dtype=torch.float32, device="cuda")
+    nu = torch.zeros_like(mu)
+    scale = torch.tensor(0.7, device="cuda") if clip else None
+    ptrs = [t.data_ptr() for t in (p, mu, nu)]
+    for step in (1, 2, 3):
+        g = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(dtype)
+        kw = _adamw_step_args(step, wd)
+        ref = tuple(t.clone() for t in (p, mu, nu))
+        naive_adamw_update_(*ref[:1], g, *ref[1:], scale=scale, **kw)
+        again = tuple(t.clone() for t in (p, mu, nu))
+        p_old = p.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = adamw_update_.launches
+        adamw_update_(p, g, mu, nu, scale=scale, **kw)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < 2**20
+        assert adamw_update_.launches == before + 1
+        assert [t.data_ptr() for t in (p, mu, nu)] == ptrs and p.dtype == dtype
+        _adamw_close(p, mu, nu, p_old, ref)
+        adamw_update_(again[0], g, *again[1:], scale=scale, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, (p, mu, nu)))
+        del ref, again, p_old, g
+
+
+def test_adamw_kernel_refuses_other_dtypes(gen):
+    """A leaf on the card of another dtype is refused, not updated by the
+    plain version, and is left as it was."""
+    p = torch.randn(4096, generator=gen, device="cuda", dtype=torch.float64)
+    mu, nu = torch.zeros(4096, device="cuda"), torch.zeros(4096, device="cuda")
+    before, p_old = adamw_update_.launches, p.clone()
+    with pytest.raises(TypeError, match="float64"):
+        adamw_update_(p, p.clone(), mu, nu, **_adamw_step_args(1, 0.1))
+    assert adamw_update_.launches == before and torch.equal(p, p_old)
+
+
+def test_adamw_update_on_card(gen):
+    """AdamW.update on a bf16 tree on the card, with weight decay and the
+    clip scale (clip_norm above the norm: the scale reads 1 on both
+    devices, whose norms sum in different orders): one launch a leaf a
+    step, and each step within _adamw_close of the plain update on the CPU
+    from the same state."""
+    shapes = {"embed": (1000, 64), "layers": [{"w": (64, 96), "norm": (64,)}], "head": (64, 7)}
+
+    def tree(scale):
+        return {"embed": _bf(gen, *shapes["embed"], scale=scale),
+                "layers": [{k: _bf(gen, *s, scale=scale) for k, s in shapes["layers"][0].items()}],
+                "head": _bf(gen, *shapes["head"], scale=scale)}
+
+    opt = AdamW(lr=1e-2, wd=0.1, clip_norm=1e3)
+    params = tree(1.0)
+    state = opt.init(params)
+    n_leaves = len(tree_leaves(params))
+    for step in (1, 2, 3):
+        grads = tree(0.1)
+        c_grads, c_state, c_params = _to((grads, state, params), "cpu")
+        p_old = [p.clone() for p in tree_leaves(params)]
+        before = adamw_update_.launches
+        params, state = opt.update(grads, state, params)
+        assert adamw_update_.launches == before + n_leaves and state["count"] == step
+        c_params, c_state = opt.update(c_grads, c_state, c_params)
+        for p, mu, nu, old, *ref in zip(*(tree_leaves(t) for t in (
+                params, state["mu"], state["nu"], p_old, c_params, c_state["mu"],
+                c_state["nu"]))):
+            _adamw_close(p, mu, nu, old, tuple(r.cuda() for r in ref))
 
 
 # ---- the op set: softmax, layer norm, pair bias and segment ids ----------

@@ -36,6 +36,7 @@ from nnop_tpu.ops.rms_norm import rms_norm as j_rms_norm
 from nnop_tpu.ops.rope import RotaryEmbedding as JRotaryEmbedding
 from nnop_tpu.ops.rope import llama_rope as j_llama_rope
 from nnop_tpu.parallel.tp_llama import AdamW as JAdamW
+from nnop_tpu.parallel.tp_llama import clip_by_global_norm as j_clip_by_global_norm
 from nnop_tpu.parallel.tp_llama import cosine_warmup_schedule as j_cosine
 from nnop_tpu.runtime import dataio as j_dataio
 from nnop_tpu_torch import cli
@@ -45,7 +46,9 @@ from nnop_tpu_torch.ops import naive
 from nnop_tpu_torch.ops.flash_attention import flash_attention
 from nnop_tpu_torch.ops.rms_norm import rms_norm
 from nnop_tpu_torch.ops.rope import RotaryEmbedding, llama_rope, llama_rope_bwd
-from nnop_tpu_torch.parallel.tp_llama import AdamW, cosine_warmup_schedule, tree_leaves
+from nnop_tpu_torch.parallel.tp_llama import (
+    AdamW, clip_by_global_norm, cosine_warmup_schedule, tree_leaves,
+)
 from nnop_tpu_torch.runtime import dataio
 
 
@@ -243,16 +246,20 @@ def _adam_trees(rng):
     return p, gs
 
 
-@pytest.mark.parametrize("kind", ["plain", "clip", "schedule"])
+@pytest.mark.parametrize("kind", ["plain", "clip", "schedule", "bf16"])
 def test_adamw_matches_jax(kind):
     """Two updates with identical gradients (the second exercises the bias
     corrections past step 1); with clip_norm, or with the cosine warmup
-    schedule and weight decay."""
+    schedule and weight decay, or on bf16 params and gradients (the
+    training cell's leaves) with weight decay and clip_norm (the clip scale
+    applied in f32, as JAX promotes it): there each param within one bf16
+    ulp of the JAX update's, the f32 moments within 1e-6."""
     rng = np.random.default_rng(6)
     p, gs = _adam_trees(rng)
     kw = {"plain": dict(lr=1e-2),
           "clip": dict(lr=1e-2, clip_norm=0.5),
-          "schedule": dict(wd=0.1)}[kind]
+          "schedule": dict(wd=0.1),
+          "bf16": dict(lr=1e-2, wd=0.1, clip_norm=0.5)}[kind]
     if kind == "schedule":
         jopt = JAdamW(lr=j_cosine(1e-2, 1, 4, 1e-3), **kw)
         opt = AdamW(lr=cosine_warmup_schedule(1e-2, 1, 4, 1e-3), **kw)
@@ -260,19 +267,46 @@ def test_adamw_matches_jax(kind):
             assert abs(opt.lr(step) - float(jopt.lr(step))) <= 1e-9
     else:
         jopt, opt = JAdamW(**kw), AdamW(**kw)
-    jparams = jax.tree.map(jnp.asarray, p)
+    jdt, dt = (jnp.bfloat16, torch.bfloat16) if kind == "bf16" else (jnp.float32, torch.float32)
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, jdt), p)
     jstate = jopt.init(jparams)
-    params = jax.tree.map(torch.from_numpy, p)
+    params = jax.tree.map(lambda a: torch.from_numpy(a).to(dt), p)
     state = opt.init(params)
     update = jax.jit(jopt.update)
     for g in gs:
-        jparams, jstate = update(jax.tree.map(jnp.asarray, g), jstate, jparams)
-        params, state = opt.update(jax.tree.map(torch.from_numpy, g), state, params)
+        jparams, jstate = update(jax.tree.map(lambda a: jnp.asarray(a, jdt), g), jstate, jparams)
+        params, state = opt.update(jax.tree.map(lambda a: torch.from_numpy(a).to(dt), g), state,
+                                   params)
     assert state["count"] == int(jstate["count"]) == 2
-    for got, want in zip(tree_leaves(params) + tree_leaves(state["mu"]) + tree_leaves(state["nu"]),
-                         jax.tree.leaves(jparams) + jax.tree.leaves(jstate["mu"])
-                         + jax.tree.leaves(jstate["nu"])):
+    for got, want in zip(tree_leaves(state["mu"]) + tree_leaves(state["nu"]),
+                         jax.tree.leaves(jstate["mu"]) + jax.tree.leaves(jstate["nu"])):
         _close(got, want, 1e-6)
+    for got, want in zip(tree_leaves(params), jax.tree.leaves(jparams)):
+        assert got.dtype == dt
+        if kind == "bf16":
+            want = torch.from_numpy(np.asarray(want, np.float32)).to(dt)
+            ulp = (torch.nextafter(want.abs(), torch.full_like(want, float("inf")))
+                   - want.abs()).float()
+            assert bool(((got.float() - want.float()).abs() <= ulp).all())
+        else:
+            _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_by_global_norm_matches_jax(dtype):
+    """The clip binding (norm ~7 against 0.5) on f32 and on bf16 leaves:
+    the norm within 1e-6 of JAX's, each clipped leaf within one ulp of its
+    dtype of JAX's (the scale applied in f32, then rounded once)."""
+    jdt, dt = getattr(jnp, dtype), getattr(torch, dtype)
+    g, _ = _adam_trees(np.random.default_rng(6))
+    jclipped, jnorm = j_clip_by_global_norm(jax.tree.map(lambda a: jnp.asarray(a, jdt), g), 0.5)
+    clipped, norm = clip_by_global_norm(jax.tree.map(lambda a: torch.from_numpy(a).to(dt), g), 0.5)
+    assert abs(norm.item() - float(jnorm)) <= 1e-6 * float(jnorm) and float(jnorm) > 1.0
+    for got, want in zip(tree_leaves(clipped), jax.tree.leaves(jclipped)):
+        want = torch.from_numpy(np.asarray(want, np.float32)).to(dt)
+        ulp = (torch.nextafter(want.abs(), torch.full_like(want, float("inf")))
+               - want.abs()).float()
+        assert got.dtype == dt and bool(((got.float() - want.float()).abs() <= ulp).all())
 
 
 def test_dataio_matches_jax():
