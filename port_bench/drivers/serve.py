@@ -17,7 +17,17 @@ computes each sampled prompt's first-token logits in f32, and the number
 is the widest gap by which a served token's reference logit lies below
 the reference's best (pbench/checks.py:logit_gap), and, where the engine
 answers with log-probabilities, the widest gap between a served token's
-log-probability and the reference's (checks.logprob_gap)."""
+log-probability and the reference's (checks.logprob_gap).
+
+With routed experts the program's router is wrapped: the experts each
+layer chose for a request's prompt rows stay on the card (uint8) until
+the window has closed; the reference takes the same experts, and the
+routing is checked apart (checks.route_checks). A configuration that
+states "weights": "int8" is served as the program's quantize_params makes
+it, and the reference dequantizes the same values by its own rule; the
+control, one precision below the configuration's, is the program's own
+path at the workload's `control_precision` (int8 unless it says
+otherwise)."""
 
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ from pbench.stats import rate
 from pbench.trace import WINDOW_RANGE, Trace, start_profiler
 from pbench.weights import derive
 from pbench import weights as W
-from drivers._program import Patch, port_config
+from drivers._program import Patch, port_config, program_params, record_routes
 
 LOADGEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "pbench",
                        "loadgen.py")
@@ -145,38 +155,51 @@ def _instrument(patch, eng, rec, job):
     longer than a chunk, the one-shot bucket for the rest) with a host
     timer and a harness range, recording each call's (start, end, offset,
     rows launched, prompt rows in it, whether it holds the prompt's last
-    row); plant a fault where asked."""
+    row), and, for routed experts, the experts each layer chose for the
+    call's prompt rows (rec["routes"]: id(request) -> (request, [per call,
+    per layer])); plant a fault where asked."""
     from nnop_tpu_torch.runtime import engine as port_engine
 
     chunk_fn, prefill_fn, admit_one = eng._prefill_chunk_fn, eng._prefill, eng._admit_one
     C = eng.prefill_chunk
     one_shot = {}
+    routed = bool(W.n_experts(job.cell.config))
 
-    def timed(fn, *args):
+    def timed(fn, *args, req=None, rows=0):
+        if routed:
+            rec["route_call"] = (rows, [])
         t0 = time.perf_counter()
         with torch.profiler.record_function("bench.prefill_chunk"):
             out = fn(*args)
-        return t0, time.perf_counter(), out
+        t1 = time.perf_counter()
+        if routed:
+            rec["routes"].setdefault(id(req), (req, []))[1].append(rec.pop("route_call")[1])
+        return t0, t1, out
+
+    def keep(idx):  # a layer's experts for the prompt rows of the call in flight
+        call = rec.get("route_call")
+        if call is not None:
+            call[1].append(idx[:call[0]].to(torch.uint8))
 
     def chunk(params, tokens_c, ks, vs, offset):
         st = eng._admitting.get(eng._admit_rr)
         L = st["L"] if st is not None else offset + C
+        req, rows = (st["req"] if st is not None else None), min(C, L - offset)
         if job.plant == "state":  # the step leaves the K/V buffers as they were
             t0, t1, (logits, _, _) = timed(chunk_fn, params, tokens_c, ks.clone(), vs.clone(),
-                                           offset)
+                                           offset, req=req, rows=rows)
             out = (logits, ks, vs)
         else:
-            t0, t1, out = timed(chunk_fn, params, tokens_c, ks, vs, offset)
-        rec["chunks"].append((t0, t1, offset, tokens_c.shape[1], min(C, L - offset),
-                              offset + C >= L))
+            t0, t1, out = timed(chunk_fn, params, tokens_c, ks, vs, offset, req=req, rows=rows)
+        rec["chunks"].append((t0, t1, offset, tokens_c.shape[1], rows, offset + C >= L))
         return out
 
     def admit(slot, req, L, *a, **kw):
-        one_shot["L"] = L
+        one_shot.update(L=L, req=req)
         return admit_one(slot, req, L, *a, **kw)
 
     def prefill(params, tokens):
-        t0, t1, out = timed(prefill_fn, params, tokens)
+        t0, t1, out = timed(prefill_fn, params, tokens, req=one_shot["req"], rows=one_shot["L"])
         rec["chunks"].append((t0, t1, 0, tokens.shape[1], one_shot["L"], True))
         return out
 
@@ -190,17 +213,19 @@ def _instrument(patch, eng, rec, job):
             return (orig_sample(logits, *a, **kw) + 1) % logits.shape[-1]
 
         patch.set(port_engine, "sample_tokens", sample)
+    if routed:
+        record_routes(patch, keep, job.plant)
 
 
 def _build_engine(job, cfg, wl):
-    from nnop_tpu_torch.models.quantized import quantize_params
     from nnop_tpu_torch.runtime.engine import Engine, fuse_decode_weights
 
     e = wl["engine"]
     pcfg = port_config(cfg, max_seq=e["max_seq"])
-    params = W.make_model(cfg, job.seed, job.device)
-    if job.plant == "control":  # the program's own int8 path, one precision below bf16
-        params = quantize_params(params, wbits=8)
+    weights = cfg.get("weights")
+    if job.plant == "control":  # the program's own path one precision below the configuration's
+        weights = wl.get("control_precision", "int8")
+    params = program_params(cfg, job.seed, job.device, weights)
     return Engine(fuse_decode_weights(params, in_place=True), pcfg, max_batch=e["max_batch"],
                   max_seq=e["max_seq"], seed=job.seed, **e.get("options", {}))
 
@@ -241,7 +266,7 @@ def run(job):
 
     cfg, wl = job.cell.config, job.cell.workload
     dev = job.device
-    rec = {"chunks": []}
+    rec = {"chunks": [], "routes": {}}
     eng = _build_engine(job, cfg, wl)
     tracer = _EngineThreadTrace(eng, dev) if job.trace else None
     with Patch() as patch:
@@ -255,6 +280,7 @@ def run(job):
             warm = clients.read()
             if warm["failed"]:
                 raise RuntimeError(f"{warm['failed']} warm-up requests failed")
+            rec["routes"].clear()  # the window's requests alone are checked
             if tracer is not None:
                 for host in (False, True):  # the profiler's own start-up stays out of the window
                     start_profiler(dev, host=host).stop()
@@ -297,7 +323,7 @@ def run(job):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out.update(_compare(job, finished, failed))
+    out.update(_compare(job, finished, failed, rec["routes"]))
     return out
 
 
@@ -312,7 +338,23 @@ def _sample(job, finished):
     return [by_len[0]] + [rest[j] for j in sorted(pick)] if by_len else []
 
 
-def _compare(job, finished, failed):
+def _prompt_routes(recorded, prompts, n_layers):
+    """Each prompt's experts as the program chose them, (layers, L, k), or
+    None where the record does not cover every row of the prompt."""
+    by_prompt = {tuple(req.prompt): calls for req, calls in recorded.values() if req is not None}
+    out = []
+    for p in prompts:
+        calls = by_prompt.get(tuple(p))
+        if not calls or any(len(c) != n_layers for c in calls):
+            return None
+        t = torch.stack([torch.cat([c[i] for c in calls]) for i in range(n_layers)])
+        if t.shape[1] != len(p):
+            return None
+        out.append(t)
+    return out
+
+
+def _compare(job, finished, failed, recorded):
     from reference import model as ref
 
     cfg, traffic, wl = job.cell.config, job.cell.traffic, job.cell.workload
@@ -323,7 +365,12 @@ def _compare(job, finished, failed):
         return {"checks": [checks.Check("logit_gap", math.inf, limits["logit_gap"])]}
     prompts = [gen.request(traffic, cfg, job.seed, r[0])[0] for r in sample]
     served = torch.tensor([r[4][0] for r in sample], device=job.device)
-    logits = ref.last_logits(cfg, job.seed, prompts, job.device)
+    routing = routes = None
+    if W.n_experts(cfg):
+        routing = ref.Routing()
+        routes = _prompt_routes(recorded, prompts, cfg["num_hidden_layers"])
+    recorded.clear()
+    logits = ref.last_logits(cfg, job.seed, prompts, job.device, routes=routes, routing=routing)
     gaps = checks.logit_gap(logits, served)
     found = [checks.Check("logit_gap", max(gaps), limits["logit_gap"])]
     readings = {"gaps": gaps, "lengths": [r[1] for r in sample]}
@@ -332,5 +379,9 @@ def _compare(job, finished, failed):
         lp_gaps = checks.logprob_gap(logits, served, lps)
         found.append(checks.Check("logprob_gap", max(lp_gaps), limits["logprob_gap"]))
         readings["logprob_gaps"] = lp_gaps
+    if routing is not None:
+        more, reading = checks.route_checks(limits, routing, routes is not None)
+        found += more
+        readings.update(reading)
     found.append(checks.Check("failed", float(failed), 0.0))
     return {"checks": found, "readings": readings}

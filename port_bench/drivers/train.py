@@ -13,11 +13,17 @@ What is compared (pbench/checks.py:train_checks): each checked step's
 loss; step 1's gradient, read back from AdamW's first moment after one
 step (mu = (1 - b1) g); the parameters' change after the checked steps,
 taken before the next step moves them. The reference runs the same steps
-from the same weights and rows once the program's state is freed."""
+from the same weights and rows once the program's state is freed.
+
+With routed experts the program's router is wrapped: each layer's chosen
+experts of the checked steps stay on the card (uint8), the reference
+takes the same experts, and the routing is checked apart
+(checks.route_checks)."""
 
 from __future__ import annotations
 
 import gc
+import math
 import time
 
 import numpy as np
@@ -27,28 +33,25 @@ from pbench import checks, spec
 from pbench.stats import rate
 from pbench import weights as W
 from pbench.trace import WINDOW_RANGE, Trace, start_profiler
-from drivers._program import Patch, port_config
+from drivers._program import Patch, port_config, record_routes
 
 
 class _Closed(Exception):
     """Raised from on_step to end train_loop when the window closes."""
 
 
+def _gap_norm(p, p0):
+    """||p - p0|| in f32; a stacked expert leaf a slab at a time."""
+    if p.ndim < 3:
+        return (p.detach().float() - p0.float()).norm().item()
+    return math.sqrt(sum((a.detach().float() - b.float()).norm().item() ** 2
+                         for a, b in zip(p, p0)))
+
+
 def _change_norms(params, cfg, seed, device):
-    """Each leaf's ||p - p0||, p0 made again from the seed a layer at a time."""
-    out = {}
-    start = {"embed": W.make_embed(cfg, seed, device),
-             "final_norm": W.make_final_norm(cfg, seed, device),
-             "lm_head": W.make_head(cfg, seed, device)}
-    for k, p0 in start.items():
-        out[k] = (params[k].detach().float() - p0.float()).norm().item()
-    del start
-    for i, layer in enumerate(params["layers"]):
-        p0 = W.make_layer(cfg, seed, i, device)
-        for k, p in layer.items():
-            out[f"layers.{i}.{k}"] = (p.detach().float() - p0[k].float()).norm().item()
-        del p0
-    return out
+    """Each leaf's ||p - p0||, p0 made again from the seed a leaf at a time."""
+    flat = W.flatten(params)
+    return {n: _gap_norm(flat[n], p0) for n, p0 in W.leaves(cfg, seed, device)}
 
 
 def run(job):
@@ -64,7 +67,7 @@ def run(job):
     lr = wl["lr"]
     docs = spec.generator(traffic["kind"])
     rows = docs.make_rows(traffic, cfg, job.seed)
-    rec = {"losses": [], "steps": 0, "grad1": None, "change": None}
+    rec = {"losses": [], "steps": 0, "grad1": None, "change": None, "calls": 0, "routes": []}
 
     if job.plant == "control":  # the reference in lower precision takes the program's place
         return dict(_compare(job, docs, rows, rec, precision=wl["control_precision"]), e2e={},
@@ -94,10 +97,17 @@ def run(job):
         return new
 
     def loss_fn(params_, tokens, targets, cfg_, **kw):
+        rec["calls"] += 1
+        if rec["calls"] <= checked:
+            rec["routes"].append([])
         if job.plant == "half":  # half of the batch's tokens left out, the mean over the rest
             tokens, targets = tokens[:, : L // 2], targets[:, : L // 2]
         with torch.profiler.record_function("bench.loss"):
             return orig_loss(params_, tokens, targets, cfg_, **kw)
+
+    def keep(idx):  # the experts of a checked step, a layer at a time
+        if rec["calls"] <= checked:
+            rec["routes"][-1].append(idx.to(torch.uint8))
 
     def batches(rows_, batch, **kw):
         for toks, tgts in orig_batches(rows_, batch, **kw):
@@ -132,6 +142,8 @@ def run(job):
         patch.set(tp_llama.AdamW, "update", update)
         patch.set(port_llama, "loss_fn", loss_fn)
         patch.set(dataio, "batches", batches)
+        if W.n_experts(cfg):
+            record_routes(patch, keep, job.plant)
         try:
             cli.train_loop(pcfg, params, rows, steps=10**9, batch=B, lr=lr, device=dev,
                            on_step=on_step, log=lambda s: None)
@@ -160,14 +172,23 @@ def run(job):
     return out
 
 
+def _covers(routes, n_layers, rows, steps):
+    """Whether the recorded choices give each checked step's every layer
+    one choice a row of the reference's batch."""
+    return len(routes) == steps and all(
+        len(step) == n_layers and all(t.shape[0] == rows for t in step) for step in routes)
+
+
 def _compare(job, docs, rows, rec, precision=None):
     """The reference's steps against the program's (or, with `precision`,
-    the reference in that precision in the program's place)."""
+    the reference in that precision in the program's place, its routing
+    taken as the program's)."""
     from reference import model as ref
 
     cfg, wl = job.cell.config, job.cell.workload
     B = job.cell.traffic["batch"]
     checked = wl["checked_steps"]
+    routed = bool(W.n_experts(cfg))
 
     def batch(step):
         r = torch.from_numpy(docs.step_rows(rows, B, step)).to(job.device)
@@ -175,12 +196,21 @@ def _compare(job, docs, rows, rec, precision=None):
 
     steps = [batch(s) for s in range(1, checked + 1)]
     if precision is not None:
+        control = ref.Routing() if routed else None
         rec["losses"], rec["grad1"], rec["change"] = ref.train_steps(
-            cfg, job.seed, steps, wl["lr"], job.device, precision=precision)
+            cfg, job.seed, steps, wl["lr"], job.device, precision=precision, routing=control)
+        if routed:
+            rec["routes"] = control.passes(cfg["num_hidden_layers"])
+        del control
         gc.collect()
         if job.device.type == "cuda":
             torch.cuda.empty_cache()
-    losses, grad1, change = ref.train_steps(cfg, job.seed, steps, wl["lr"], job.device)
+    routing = ref.Routing() if routed else None
+    replay = routed and _covers(rec["routes"], cfg["num_hidden_layers"], steps[0][0].numel(),
+                                checked)
+    losses, grad1, change = ref.train_steps(cfg, job.seed, steps, wl["lr"], job.device,
+                                            routes=rec["routes"] if replay else None,
+                                            routing=routing)
     found = checks.train_checks(wl["limits"], rec["losses"], losses, rec["grad1"] or {},
                                 grad1, rec["change"] or {}, change) if (
         rec["grad1"] and rec["change"]) else [checks.Check("steps_checked", float("inf"), 0.0)]
@@ -191,4 +221,8 @@ def _compare(job, docs, rows, rec, precision=None):
         moving = [n for n in names if grad1[n] >= checks.STILL_LEAF * med]
         readings["grad1"] = checks.leaf_detail(rec["grad1"], grad1, names)
         readings["update"] = checks.leaf_detail(rec["change"], change, moving)
+    if routed:
+        more, reading = checks.route_checks(wl["limits"], routing, replay)
+        found += more
+        readings.update(reading)
     return {"checks": found, "readings": readings}

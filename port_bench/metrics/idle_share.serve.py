@@ -6,6 +6,6 @@ fills' intervals)."""
 
 def read(ctx):
     trace = ctx.get("trace")
-    if trace is None:
+    if trace is None or trace.window_s <= 0:  # a stretch that traced nothing
         return None
     return 100.0 * (1.0 - trace.busy_s() / trace.window_s)

@@ -61,6 +61,18 @@ def train_checks(limits, prog_losses, ref_losses, prog_grad1, ref_grad1, prog_ch
                   limits["update_gap"])]
 
 
+def route_checks(limits, routing, replayed: bool = True):
+    """A routed configuration's number: the widest gap by which an expert
+    that the program chose, and the reference's own router would not have,
+    lies below the reference's k-th logit at that layer and token (f32
+    logit units; 0 where every choice agrees). Where the program's choices
+    could not be replayed (they cover other rows than the reference's), it
+    is infinite. Its reading: the share of the assignments that differ."""
+    margin = routing.margin if replayed else math.inf
+    share = routing.flips / routing.assignments if routing.assignments else math.nan
+    return [Check("route_margin", margin, limits["route_margin"])], {"route_flip_share": share}
+
+
 def logit_gap(ref_logits, served) -> list[float]:
     """Per request: how far the served token's reference logit lies below
     the reference's best."""

@@ -86,16 +86,45 @@ def flash_bwd_dkv(B, QH, KH, E, L, window, elt=2):
     return ops, nbytes
 
 
+# ---- grouped expert products -----------------------------------------------
+# rows: the real expert-sorted rows, T * k, never the padded Tp; hit: the
+# experts that at least one row takes (only their slabs are read or written)
+
+
+def gmm_fwd(rows, K, N, hit, elt=2, w_elt=2):
+    """Kernel I's forward, (rows, K) against each hit expert's (K, N) slab:
+    (ops, bytes). Reads the rows and the hit slabs (w_elt bytes a weight:
+    1 for int8), writes (rows, N)."""
+    return 2 * rows * K * N, rows * K * elt + hit * K * N * w_elt + rows * N * elt
+
+
+def gmm_dx(rows, K, N, hit, elt=2):
+    """dx = dy (rows, N) times each hit expert's slab transposed: reads dy
+    and the hit slabs, writes dx (rows, K)."""
+    return 2 * rows * K * N, rows * N * elt + hit * K * N * elt + rows * K * elt
+
+
+def gmm_dw(rows, K, N, hit, elt=2):
+    """dw_e = x_e^T dy_e (the dw kernel): reads x (rows, K) and dy (rows,
+    N), writes the hit experts' (K, N) gradients."""
+    return 2 * rows * K * N, rows * (K + N) * elt + hit * K * N * elt
+
+
 # ---- whole-model operations (for the shares of the peak) ------------------
 
 
 def layer_linear_ops_per_token(cfg: dict) -> int:
     """Operations one token needs in one decoder layer's products: the q,
-    k, v and o projections and the SwiGLU MLP."""
+    k, v and o projections and the SwiGLU MLP, or with routed experts the
+    router's product and the SwiGLUs of the k experts the token takes."""
     d = cfg["hidden_size"]
     H, KH = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     E = head_dim(cfg)
-    return 2 * d * (H + 2 * KH) * E + 2 * H * E * d + 3 * 2 * d * cfg["intermediate_size"]
+    attn = 2 * d * (H + 2 * KH) * E + 2 * H * E * d
+    mlp = 3 * 2 * d * cfg["intermediate_size"]
+    if cfg.get("num_local_experts"):
+        return attn + cfg["num_experts_per_tok"] * mlp + 2 * d * cfg["num_local_experts"]
+    return attn + mlp
 
 
 def head_dim(cfg: dict) -> int:

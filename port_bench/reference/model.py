@@ -1,19 +1,34 @@
-"""Mistral decoder in plain float32 PyTorch (TF32 off).
+"""Mistral and Mixtral decoders in plain float32 PyTorch (TF32 off).
 
-The published equations (Mistral-7B-v0.1): RMS norm, rotary embedding in
-the split-half convention with inv_freq = theta^(-2i/E), causal attention
-with grouped KV heads where query p sees keys (p - window, p], a SwiGLU
-MLP, a final norm and an untied head.
+The published equations (Mistral-7B-v0.1, Mixtral-8x7B-v0.1): RMS norm,
+rotary embedding in the split-half convention with inv_freq =
+theta^(-2i/E), causal attention with grouped KV heads where query p sees
+keys (p - window, p], a SwiGLU MLP, a final norm and an untied head.
+Mixtral's MLP routes each token: router logits r = h W_r, the top k of
+them, weights the softmax over those k, and the output sum_j w_j
+SwiGLU_{e_j}(h), computed one expert at a time over its own rows. The
+training loss adds the program's aux term, the Switch load-balance loss
+of each layer (E sum_e f_e p_e, f_e the share of the assignments to
+expert e, p_e its mean router probability) times `router_aux_loss_coef`
+over the number of layers.
 
 Departures, each a property of how the configuration is run, not of the
 mathematics: stored weights are the bf16 tensors of `pbench/weights.py`,
-used in f32; training rounds the parameters to bf16 after each AdamW
-update, as they are stored.
+used in f32 (or, where the configuration states "weights": "int8", their
+int8 form by the plain per-channel rule of `int8_weight`); training rounds
+the parameters to bf16 after each AdamW update, as they are stored.
+
+A routed layer may be given the experts to take (`route`): the program's
+own choices, replayed, so that what follows is compared on the same
+routing; the weights still come from the reference's own logits at
+those experts. A `Routing` records how far each given choice lies from
+the reference's own.
 
 `precision` selects what the products see: "f32" (the reference), or, as
 the training cell's control that must fail the check, "fp8" (both
-operands of every projection rounded to float8-e4m3 with a per-tensor
-scale, the gradient passed straight through)."""
+operands of every projection and expert product rounded to float8-e4m3
+with a per-tensor scale, the gradient passed straight through; the router
+stays in f32, as the program computes it)."""
 
 from __future__ import annotations
 
@@ -191,18 +206,117 @@ def mlp_block(x, lw, cfg, precision="f32"):
     return x + out
 
 
-def layer(x, lw, cfg, cos, sin, precision="f32"):
-    return mlp_block(attention_block(x, lw, cfg, cos, sin, precision), lw, cfg, precision)
+class Routing:
+    """What a run's routed layers chose, against the reference's own
+    router. Per routed layer call (`key`): the experts taken (`chosen`,
+    uint8); and, where a taken expert is not among the reference's own
+    top k, how far its reference logit lies below the reference's k-th
+    (the widest such gap, `margin`, in f32 logit units) and how many
+    assignments differ (`flips` of `assignments`)."""
+
+    def __init__(self):
+        self.chosen = {}
+        self.assignments = 0
+        self._flips = []
+        self._widest = []
+
+    @torch.no_grad()
+    def note(self, key, logits, own, idx):
+        self.chosen[key] = idx.to(torch.uint8)
+        hit = (idx[:, :, None] == own.indices[:, None, :]).any(-1)
+        gap = own.values[:, -1:] - logits.gather(1, idx)
+        self._widest.append(torch.where(hit, -math.inf, gap).amax())
+        self._flips.append((~hit).sum())
+        self.assignments += idx.numel()
+
+    @property
+    def margin(self) -> float:
+        return max([0.0] + [float(w) for w in self._widest])
+
+    @property
+    def flips(self) -> int:
+        return int(sum(int(f) for f in self._flips))
+
+    def passes(self, n_layers):
+        """The chosen experts as [pass][layer] for keys (pass, layer)."""
+        n = 1 + max(p for p, _ in self.chosen)
+        return [[self.chosen[(p, i)] for i in range(n_layers)] for p in range(n)]
+
+
+def load_balance(logits, idx, n_experts):
+    """The Switch load-balance loss of one layer's routing."""
+    k = idx.shape[1]
+    f = (idx[..., None] == torch.arange(n_experts, device=idx.device)).float().sum(1).mean(0)
+    return n_experts * ((f / k) * torch.softmax(logits, dim=-1).mean(0)).sum()
+
+
+def moe_block(x, lw, cfg, precision="f32", route=None, routing=None, key=None):
+    """x (B, L, d) -> (x + moe(norm(x)), the layer's load-balance loss).
+    route: (B * L, k) experts to take in place of the reference's own top
+    k; routing: a Routing that notes this call under `key`. Where no
+    gradient is kept, each expert runs over its rows in blocks."""
+    B, L, d = x.shape
+    n_exp, k = cfg["num_local_experts"], cfg["num_experts_per_tok"]
+    h = rms_norm(x, lw["mlp_norm"], cfg["rms_norm_eps"]).reshape(B * L, d)
+    logits = h @ lw["w_router"]
+    own = logits.topk(k, dim=-1)
+    idx = own.indices if route is None else route.to(h.device).long()
+    w = torch.softmax(logits.gather(1, idx), dim=-1)
+    if routing is not None:
+        routing.note(key, logits, own, idx)
+    grad = torch.is_grad_enabled()
+    out = torch.zeros_like(h)
+    for e in range(n_exp):
+        tok, slot = torch.nonzero(idx == e, as_tuple=True)
+        step = max(1, tok.numel()) if grad else MLP_BLOCK
+        for s in range(0, tok.numel(), step):
+            t = tok[s:s + step]
+            y = _swiglu(h[t], lw["w_gate"][e], lw["w_up"][e], lw["w_down"][e], precision)
+            y = y * w[t, slot[s:s + step], None]
+            out = out.index_add(0, t, y) if grad else out.index_add_(0, t, y)
+    return x + out.view(B, L, d), load_balance(logits, idx, n_exp)
+
+
+def layer(x, lw, cfg, cos, sin, precision="f32", route=None, routing=None, key=None):
+    """One decoder layer: (x out, its load-balance loss, 0 when dense)."""
+    x = attention_block(x, lw, cfg, cos, sin, precision)
+    if "w_router" in lw:
+        return moe_block(x, lw, cfg, precision, route, routing, key)
+    return mlp_block(x, lw, cfg, precision), 0.0
+
+
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+
+
+def int8_weight(w):
+    """A weight (..., K, N) as stored in int8, in f32: for each output
+    column (of each expert) the scale amax|w| / 127 over K, the value
+    round(w / scale), half to even, within +-127, times the scale."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=-2, keepdim=True).clamp(min=1e-8) / torch.tensor(
+        127.0, device=wf.device)
+    return (wf / scale).round().clamp(-127.0, 127.0) * scale
+
+
+def stored(cfg, name, w):
+    """A leaf in f32 as the configuration stores it: the projections and
+    experts (and the head) through int8 where it states "weights": "int8";
+    the embedding, the norms and the router as bf16."""
+    if cfg.get("weights") == "int8" and name in PROJECTIONS:
+        return int8_weight(w)
+    return w.float()
 
 
 # ---- serving: the first token's logits -------------------------------------
 
 
 @torch.no_grad()
-def last_logits(cfg, seed, prompts, device, precision="f32"):
+def last_logits(cfg, seed, prompts, device, precision="f32", routes=None, routing=None):
     """f32 logits (n, V) at the last position of each prompt, the weights
     made again from the seed one layer at a time; the prompts go through
-    each layer together."""
+    each layer together. routes: per prompt, its experts to take at each
+    routed layer ((layers, L, k)); routing: a Routing that notes each
+    (prompt, layer)."""
     no_tf32()
     embed = W.make_embed(cfg, seed, device)
     xs = [embed[torch.as_tensor(p, device=device)].float()[None] for p in prompts]
@@ -211,11 +325,13 @@ def last_logits(cfg, seed, prompts, device, precision="f32"):
     longest = max(len(p) for p in prompts)
     cos, sin = rope_tables(longest, E, cfg["rope_theta"], device)
     for i in range(cfg["num_hidden_layers"]):
-        lw = {n: t.float() for n, t in W.make_layer(cfg, seed, i, device).items()}
-        xs = [layer(x, lw, cfg, cos[:x.shape[1]], sin[:x.shape[1]], precision) for x in xs]
+        lw = {n: stored(cfg, n, t) for n, t in W.layer_leaves(cfg, seed, i, device)}
+        xs = [layer(x, lw, cfg, cos[:x.shape[1]], sin[:x.shape[1]], precision,
+                    None if routes is None else routes[p][i], routing, (p, i))[0]
+              for p, x in enumerate(xs)]
         del lw
     fn = W.make_final_norm(cfg, seed, device).float()
-    head = W.make_head(cfg, seed, device).float()
+    head = stored(cfg, "lm_head", W.make_head(cfg, seed, device))
     last = torch.cat([rms_norm(x[:, -1], fn, cfg["rms_norm_eps"]) for x in xs])
     return mm(last, head, precision)
 
@@ -223,34 +339,59 @@ def last_logits(cfg, seed, prompts, device, precision="f32"):
 # ---- training: the first steps ---------------------------------------------
 
 
-def loss_fn(params, tokens, targets, cfg, precision="f32"):
-    """Mean next-token cross-entropy over all positions. params: {name: f32
-    leaf} (weights.flatten)."""
+def loss_fn(params, tokens, targets, cfg, precision="f32", route=None, routing=None, step=0):
+    """Mean next-token cross-entropy over all positions, and for routed
+    layers the program's aux term. params: {name: f32 leaf}
+    (weights.flatten); route: per layer, the experts to take ((B * L, k));
+    routing: a Routing that notes each (step, layer)."""
     B, L = tokens.shape
     x = params["embed"][tokens]
     cos, sin = rope_tables(L, W.head_dim(cfg), cfg["rope_theta"], tokens.device)
+    aux = 0.0
     for i in range(cfg["num_hidden_layers"]):
         lw = {k.split(".", 2)[2]: v for k, v in params.items() if k.startswith(f"layers.{i}.")}
-        x = layer(x, lw, cfg, cos, sin, precision)
+        x, a = layer(x, lw, cfg, cos, sin, precision, None if route is None else route[i],
+                     routing, (step, i))
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg["rms_norm_eps"])
     logits = mm(x, params["lm_head"], precision)
-    return F.cross_entropy(logits.view(B * L, -1), targets.reshape(B * L).long())
+    loss = F.cross_entropy(logits.view(B * L, -1), targets.reshape(B * L).long())
+    if W.n_experts(cfg):
+        loss = loss + cfg["router_aux_loss_coef"] * aux / cfg["num_hidden_layers"]
+    return loss
 
 
-def train_steps(cfg, seed, batches, lr, device, precision="f32", b1=0.9, b2=0.999, eps=1e-8):
+# f32 parameters, gradients and AdamW moments take 16 bytes a parameter; past
+# this share of the card the moments live in host memory, leaf by leaf
+MOMENTS_ON_CARD = 0.75
+
+
+def _moments_home(params, device):
+    if device.type != "cuda":
+        return device
+    n = sum(p.numel() for p in params.values())
+    if 16 * n <= MOMENTS_ON_CARD * torch.cuda.get_device_properties(device).total_memory:
+        return device
+    return torch.device("cpu")
+
+
+def train_steps(cfg, seed, batches, lr, device, precision="f32", routes=None, routing=None,
+                b1=0.9, b2=0.999, eps=1e-8):
     """AdamW steps from the seed's bf16 weights over `batches` [(tokens,
     targets) int tensors (B, L)], parameters rounded to bf16 after each
-    update. Returns (losses, {leaf: norm of step 1's gradient}, {leaf:
-    norm of the parameters' change after the last step})."""
+    update. routes: per step, per layer, the experts to take; routing: a
+    Routing that notes each (step, layer). Returns (losses, {leaf: norm of
+    step 1's gradient}, {leaf: norm of the parameters' change after the
+    last step})."""
     no_tf32()
-    params = {n: t.float().requires_grad_(True)
-              for n, t in W.flatten(W.make_model(cfg, seed, device)).items()}
+    params = {n: t.float().requires_grad_(True) for n, t in W.leaves(cfg, seed, device)}
     names = list(params)
-    mu = {n: torch.zeros_like(p) for n, p in params.items()}
-    nu = {n: torch.zeros_like(p) for n, p in params.items()}
+    home = _moments_home(params, device)
+    mu, nu = {}, {}
     losses, grad1 = [], {}
     for count, (tokens, targets) in enumerate(batches, 1):
-        loss = loss_fn(params, tokens, targets, cfg, precision)
+        loss = loss_fn(params, tokens, targets, cfg, precision,
+                       None if routes is None else routes[count - 1], routing, count - 1)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         losses.append(loss.item())
         with torch.no_grad():
@@ -259,12 +400,16 @@ def train_steps(cfg, seed, batches, lr, device, precision="f32", b1=0.9, b2=0.99
             for n, g in zip(names, grads):
                 if count == 1:
                     grad1[n] = g.norm().item()
-                mu[n].mul_(b1).add_(g, alpha=1 - b1)
-                nu[n].mul_(b2).addcmul_(g, g, value=1 - b2)
-                step = (mu[n] / b1c) / ((nu[n] / b2c).sqrt() + eps)
+                m = mu[n].to(device) if n in mu else torch.zeros_like(g)
+                v = nu[n].to(device) if n in nu else torch.zeros_like(g)
+                m.mul_(b1).add_(g, alpha=1 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                step = (m / b1c) / ((v / b2c).sqrt() + eps)
                 params[n].copy_((params[n] - lr * step).to(torch.bfloat16).float())
+                if count < len(batches):
+                    mu[n], nu[n] = m.to(home), v.to(home)
         del grads, loss
     del mu, nu
-    start = W.flatten(W.make_model(cfg, seed, device))
-    change = {n: (params[n].detach() - start[n].float()).norm().item() for n in names}
+    change = {n: (params[n].detach() - t.float()).norm().item()
+              for n, t in W.leaves(cfg, seed, device)}
     return losses, grad1, change

@@ -16,7 +16,10 @@ loaded.
 `--seconds`, and prints each seed's compared numbers: the readings a
 limit is set from. `--plant control` puts the precision below the
 configuration's in the program's place (the control, which must fail);
-`--plant state|half|token` plants a fault in the timed path.
+`--plant state|half|token` plants a fault in the timed path, and
+`--plant route` (configurations with routed experts) makes the program
+take its lowest-logit expert in place of its second choice for every
+fourth token.
 """
 
 from __future__ import annotations
@@ -68,9 +71,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--readings", type=int, default=0)
     ap.add_argument("--plant", default="none", choices=("none", "control", "state", "half",
-                                                        "token"))
+                                                        "token", "route"))
     args = ap.parse_args(argv)
     cell = spec.cell(args.workload)
+    if args.plant == "route" and not cell.config.get("num_local_experts"):
+        ap.error("--plant route needs a configuration with routed experts")
     try:
         card.require_cuda(cell.chips)
     except card.NoCard as e:

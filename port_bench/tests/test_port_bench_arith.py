@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import pytest
 
-import tiny  # noqa: F401
+import tiny
 from pbench import roofline, stats
 
 
@@ -41,6 +41,39 @@ def test_train_step_ops_by_hand():
     fwd = 3 * (per_token * L + attn) + 2 * 8 * 10 * L
     assert roofline.train_step_ops(CFG, 1, L) == 3 * fwd
     assert roofline.train_step_ops(CFG, 2, L) == 2 * 3 * fwd
+
+
+def test_routed_layer_ops_by_hand():
+    moe = dict(CFG, num_local_experts=4, num_experts_per_tok=2)
+    # q,k,v; o; two experts' SwiGLUs; the router
+    per_token = 2 * 8 * (2 + 2) * 4 + 2 * 8 * 8 + 2 * 3 * 2 * 8 * 16 + 2 * 8 * 4
+    assert roofline.layer_linear_ops_per_token(moe) == per_token
+
+
+def test_grouped_expert_bounds_by_hand():
+    # 6 real rows (3 tokens, top 2) over 2 of the experts, K 8, N 16
+    assert roofline.gmm_fwd(6, 8, 16, 2) == (2 * 6 * 8 * 16, 6 * 8 * 2 + 2 * 8 * 16 * 2
+                                              + 6 * 16 * 2)
+    assert roofline.gmm_fwd(6, 8, 16, 2, w_elt=1)[1] == 6 * 8 * 2 + 2 * 8 * 16 + 6 * 16 * 2
+    assert roofline.gmm_dx(6, 8, 16, 2) == (2 * 6 * 8 * 16, 6 * 16 * 2 + 2 * 8 * 16 * 2
+                                             + 6 * 8 * 2)
+    assert roofline.gmm_dw(6, 8, 16, 2) == (2 * 6 * 8 * 16, 6 * 24 * 2 + 2 * 8 * 16 * 2)
+
+
+@pytest.mark.parametrize("name,ops,at_2048,at_6144", [
+    ("mistral-7b-8l", 102100767866880.0, 0.008060256338831142, 0.007817192393124369),
+    ("mistral-7b", 389075718635520.0, 0.03224102535532457, 0.03126797439352882)])
+def test_dense_configurations_count_as_before(name, ops, at_2048, at_6144):
+    # the cells' step operations and prefill times at the peak as they were
+    # counted before routed experts came, to the last digit
+    import json
+    import os
+
+    with open(os.path.join(tiny.BENCH_DIR, "configs", name + ".json")) as f:
+        cfg = json.load(f)
+    assert roofline.train_step_ops(cfg, 1, 8192) == ops
+    assert roofline.prefill_seconds_at_peak(cfg, 2048, 2048, False) == at_2048
+    assert roofline.prefill_seconds_at_peak(cfg, 6144, 1920, True) == at_6144
 
 
 def test_prefill_peak_time_by_hand():

@@ -3,7 +3,9 @@ look for a card: sound, it comes out correct; with the timed path broken
 underneath, `correct` comes out false, once for each fault the cell can
 have (a step that leaves its state as it was, half of the batch left out
 with the mean over the rest, a token altered where it is produced; one
-card, so no exchange between cards to leave out)."""
+card, so no exchange between cards to leave out). With routed experts in
+every layer, the same, and a router that takes a wrong expert for every
+fourth token fails on the routing's own check."""
 
 from __future__ import annotations
 
@@ -26,6 +28,36 @@ def test_a_run_is_correct_unless_broken(cell, plant):
     assert list(result)[-1] == "checks"
     for c in result["checks"].values():
         assert set(c) == {"value", "limit"}
+
+
+ROUTED = ([(c, p) for c in TRAIN for p in ("none", "state", "half", "token", "route")]
+          + [(c, p) for c in SERVE for p in ("none", "state", "token", "route")])
+
+
+@pytest.mark.parametrize("cell,plant", ROUTED)
+def test_a_routed_run_is_correct_unless_broken(cell, plant):
+    result, out = run_cell(tiny.cell(cell, experts=(4, 2)), SEED + 3, 0.5, False, "cpu", plant)
+    checks = result["checks"]
+    assert result["correct"] is (plant == "none"), checks
+    assert 0.0 <= out["readings"]["route_flip_share"] <= 1.0
+    if plant == "route":  # the routing's check fails; what follows the replayed routing need not
+        assert checks["route_margin"]["value"] > checks["route_margin"]["limit"]
+
+
+@pytest.mark.parametrize("experts", [None, (4, 2)])
+def test_int8_weights_are_served_and_the_int4_control_reads_wider(experts):
+    widest = {}
+    for plant in ("none", "control"):
+        c = tiny.cell("mistral-7b.prefill-longdoc", experts=experts)
+        c.config["weights"] = "int8"
+        c.workload["control_precision"] = "int4"
+        result, _ = run_cell(c, SEED + 4, 0.5, False, "cpu", plant)
+        if plant == "none":
+            assert result["correct"], result["checks"]
+        widest[plant] = max(result["checks"][n]["value"] for n in ("logit_gap", "logprob_gap"))
+    # the tiny limits are the cells' own readings at bf16, too loose to fail
+    # every int4 control here: the control's gaps stand well above the sound run's
+    assert widest["control"] > widest["none"] + 0.1, widest
 
 
 @pytest.mark.parametrize("cell", TRAIN + SERVE)

@@ -22,14 +22,24 @@ LIMITS = {
     "mistral-7b.train-l8192": {"loss_gap": 0.005, "grad1_gap": 0.009, "update_gap": 0.02},
     "mistral-7b.prefill-longdoc": {"logit_gap": 0.5, "logprob_gap": 0.5},
 }
+MOE_LIMITS = {
+    "mistral-7b.train-l8192": {"loss_gap": 0.005, "grad1_gap": 0.009, "update_gap": 0.02,
+                               "route_margin": 0.05},
+    "mistral-7b.prefill-longdoc": {"logit_gap": 0.5, "logprob_gap": 0.5, "route_margin": 0.1},
+}
 CFG = dict(hidden_size=64, intermediate_size=128, num_attention_heads=4, num_key_value_heads=2,
            vocab_size=256)
 
 
-def cell(name: str, **over):
+def cell(name: str, experts=None, **over):
+    """The tiny cell; experts=(n, k): every layer routes each token to k
+    of n experts on the program's grouped path."""
     c = spec.cell(name)
     c = copy.deepcopy(c)
     c.config.update(CFG, num_hidden_layers=2)
+    if experts:
+        c.config.update(num_local_experts=experts[0], num_experts_per_tok=experts[1],
+                        router_aux_loss_coef=0.02, moe_impl="grouped")
     if c.config.get("sliding_window"):
         c.config["sliding_window"] = 24
     t = c.traffic
@@ -41,7 +51,7 @@ def cell(name: str, **over):
         e = c.workload["engine"]
         c.workload["engine"] = dict(e, max_seq=128,
                                     options=dict(e.get("options", {}), prefill_chunk=32))
-    c.workload["limits"] = dict(LIMITS[name])
+    c.workload["limits"] = dict((MOE_LIMITS if experts else LIMITS)[name])
     for k, v in over.items():
         getattr(c, k).update(v)
     return c
